@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
-"""Chip smoke run of the PyTorch/CUDA port: CARAT's main path on one GPU.
+"""Chip smoke run of the PyTorch/CUDA port: its main paths on one GPU.
 
-Builds the GBDT CUDA kernels from ``src/repro_torch``, holds each one
-against its plain torch version on the card, holds the 100k-client
-``soa-torch`` fleet against the host ``soa`` core, then drives CARAT's
-online co-tuning loop (``CaratPolicy`` over a ``soa-torch`` fleet of 4096
-clients) and checks that every probe batch went through the kernels and
-is bit-identical to the plain version. Each phase prints one JSON line
-and any failed check ends the run with a non-zero exit; the line before
-the last lists every kernel with its launches and times, and the last
-line is ``{"ok": true, "device": {...}}``.
+Builds every CUDA kernel of ``src/repro_torch`` (one ``nvcc`` per
+source, all at once) and holds each against its plain torch version on
+the card. Then it drives the port's two paths:
+
+* CARAT's online co-tuning loop: the 100k-client ``soa-torch`` fleet
+  against the host ``soa`` core, then ``CaratPolicy`` over a fleet of
+  4096 clients, every probe batch through the GBDT kernels and
+  bit-identical to the plain version;
+* the LM serving path at granite-3-2b's full width and depth: the
+  forward against token-by-token decode in float32 (the attention
+  kernels on every layer), then a bfloat16 prefill of 4 x 2048 tokens
+  and ``ServeEngine.generate`` on 8 ragged requests.
+
+Each phase prints one JSON line and any failed check ends the run with a
+non-zero exit; the line before the last lists every kernel with its
+launches and times, and the last line is ``{"ok": true, "device": {...}}``.
 
 Usage (one CUDA device; imports nothing of JAX or of ``repro``)::
 
@@ -21,6 +28,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -32,14 +40,36 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth and
-# float32 rate outside the tensor cores
+# published peaks of one H100 SXM (NVIDIA data sheet): HBM3 bandwidth,
+# float32 rate outside the tensor cores, dense bfloat16 tensor-core rate
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
+H100_BF16_OPS_PER_S = 989e12
 
-KERNEL_SOURCE = "src/repro_torch/kernels/gbdt_infer/csrc/gbdt_infer.cu"
-# the Pallas kernel both CUDA kernels replace (_gbdt_kernel)
-PALLAS_KERNEL = "src/repro/kernels/gbdt_infer/kernel.py:35"
+# every CUDA kernel of the port: its source and the Pallas kernel it
+# replaces (file:line of the kernel function)
+_GBDT_CU = "src/repro_torch/kernels/gbdt_infer/csrc/gbdt_infer.cu"
+_GBDT_PALLAS = "src/repro/kernels/gbdt_infer/kernel.py:35"
+KERNELS = {
+    "gbdt_logits": (_GBDT_CU, _GBDT_PALLAS),
+    "gbdt_grid_logits": (_GBDT_CU, _GBDT_PALLAS),
+    "flash_attention": (
+        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/kernel.py:36"),
+    "decode_attention": (
+        "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
+        "src/repro/kernels/decode_attention/kernel.py:31"),
+}
+# tolerances of the reference's own tests: kernels against their oracles
+# (tests/test_kernels.py:32,96), decode against forward
+# (tests/test_models.py:99)
+ATOL = {"bfloat16": 2e-2, "float32": 2e-5}
+DECODE_ATOL = 5e-4
+# bfloat16 outputs are also held to 2e-2 of each output row's largest
+# |value| in the plain version: a row that averages thousands of keys has
+# values about as small as the absolute 2e-2, which alone would pass a
+# wrong row; a right one differs by about one bfloat16 ulp (2**-8)
+BF16_ROW_RTOL = 2e-2
 
 # workload mixes of the reference's benchmarks/bench_soa_device.py
 STRIPED_CYCLE = ("f_rd_rn_8k", "f_wr_sq_1m", "f_rd_sq_1m", "f_wr_rn_8k",
@@ -88,11 +118,12 @@ def time_ms(fn: Callable[[], object], dev, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def bound(bytes_moved: float, ops: float) -> Dict:
+def bound(bytes_moved: float, ops: float,
+          ops_per_s: float = H100_F32_OPS_PER_S) -> Dict:
     """Least time the card could take: the larger of the bytes over the
-    memory rate and the operations over the float32 rate."""
+    memory rate and the operations over the peak rate of their type."""
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
-    t_ops = ops / H100_F32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return {"bytes": int(bytes_moved), "ops": int(ops),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
@@ -114,14 +145,38 @@ def phase_device(dev) -> Dict:
             "torch": torch.__version__, "cuda": torch.version.cuda}
 
 
+def _libraries() -> Dict:
+    from repro_torch.kernels.decode_attention import kernel as dec
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.gbdt_infer import kernel as gbdt
+    return {"gbdt_infer": gbdt.LIBRARY, "flash_attention": fa.LIBRARY,
+            "decode_attention": dec.LIBRARY}
+
+
+def _ptxas_summary(report: str) -> Dict:
+    regs = [int(m) for m in re.findall(r"Used (\d+) registers", report)]
+    spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores",
+                                         report)]
+    return {"entries": len(regs), "max_registers": max(regs, default=None),
+            "spill_store_bytes": sum(spills)}
+
+
 def phase_build() -> Dict:
-    from repro_torch.kernels.gbdt_infer.kernel import build
+    """Every kernel library, one ``nvcc`` each, all started together."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(lib):
+        t0 = time.perf_counter()
+        path, report = lib.build()
+        return {"seconds": time.perf_counter() - t0, "library": path.name,
+                **_ptxas_summary(report)}
+
     t0 = time.perf_counter()
-    lib, report = build()
+    libs = _libraries()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        done = dict(zip(libs, ex.map(one, libs.values())))
     return {"phase": "build", "seconds": time.perf_counter() - t0,
-            "library": lib.name,
-            "ptxas": [ln.strip() for ln in report.splitlines()
-                      if "registers" in ln or "Compiling entry" in ln]}
+            "libraries": done}
 
 
 def phase_gbdt_logits(dev, model, n_rows: int, seed: int,
@@ -325,17 +380,39 @@ def _carat_sim(dev, models, n: int, seed: int, node_size: int,
     return sim, policy, timers
 
 
-def _device_busy_ms(sim, dev, seconds: float):
-    """Device time of every kernel and copy of a profiled run (the
-    profiler's CUPTI trace), or None where it records none."""
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        sim.run(seconds)
+def _device_busy_ms(fn: Callable[[], object], dev, top: int = 0):
+    """Device time of every kernel, copy and memset of a profiled call of
+    ``fn`` (the device-side events of the profiler's CUPTI trace; the
+    CPU ops that launched them carry the same time again and are left
+    out), or None where it records none; the call's wall seconds; and,
+    with ``top``, the ``top`` device-side entries with the most time
+    (name, device ms, count)."""
+    t0 = time.perf_counter()
+    with _profiler() as prof:
+        fn()
         sync(dev)
-    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.key_averages())
-    return busy_us / 1e3 if busy_us > 0 else None
+    wall = time.perf_counter() - t0
+    busy_ms, heaviest = _device_time(prof, top)
+    return busy_ms, wall, heaviest
+
+
+def _profiler():
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _device_time(prof, top: int = 0):
+    """The device-side events of a stopped profiler: their summed ms (or
+    None where it recorded none) and the ``top`` entries with the most
+    time (name, device ms, count)."""
+    from torch.autograd import DeviceType
+    on_device = [e for e in prof.key_averages()
+                 if e.device_type != DeviceType.CPU]
+    busy_us = sum(e.self_device_time_total for e in on_device)
+    ranked = sorted(on_device, key=lambda e: -e.self_device_time_total)
+    heaviest = [[e.key[:60], e.self_device_time_total / 1e3, e.count]
+                for e in ranked[:top]]
+    return (busy_us / 1e3 if busy_us > 0 else None), heaviest
 
 
 def phase_carat(dev, n: int, intervals: int, seed: int, node_size: int,
@@ -398,24 +475,381 @@ def phase_carat(dev, n: int, intervals: int, seed: int, node_size: int,
            "device_busy_share_traced": None}
     if dev.type == "cuda":
         traced, _, _ = _carat_sim(dev, models, n, seed, node_size, flip_at)
-        t0 = time.perf_counter()
-        busy_ms = _device_busy_ms(traced, dev, intervals * sim.interval_s)
-        traced_wall = time.perf_counter() - t0
+        busy_ms, traced_wall, _ = _device_busy_ms(
+            lambda: traced.run(intervals * sim.interval_s), dev)
         if busy_ms is not None:
             out["device_busy_ms_per_interval"] = busy_ms / intervals
             out["device_busy_share_traced"] = busy_ms / 1e3 / traced_wall
     return out
 
 
-def kernel_line(logits_small: Dict, grid: Dict, launches: Dict) -> Dict:
-    def row(name, ph):
-        return {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-                "replaces": PALLAS_KERNEL, "launches": launches[name],
-                "max_abs_err": ph["max_abs_err"], "ms": ph["ms"],
-                "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
-                "bound_by": ph["bound_by"], "library_ms": None}
-    return {"kernels": [row("gbdt_logits", logits_small),
-                        row("gbdt_grid_logits", grid)]}
+# ------------------------------------------------------------ LM serving path
+def _generator(dev, seed: int):
+    import torch
+    return torch.Generator(device=dev).manual_seed(seed)
+
+
+def _randn(g, dev, dtype, *shapes):
+    import torch
+    return [torch.randn(s, generator=g, device=dev).to(dtype)
+            for s in shapes]
+
+
+def _max_err(got, want) -> float:
+    return float((got.float() - want.float()).abs().max().item())
+
+
+def _check_close(what: str, got, want) -> Dict:
+    """``got`` against the plain version's ``want``: gated at ATOL of
+    their type and, in bfloat16, at BF16_ROW_RTOL of each output row's
+    largest |value| (rows along the last dim)."""
+    name = str(want.dtype).split(".")[-1]
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max().item())
+    gate(err <= ATOL[name],
+         f"{what} {name}: max_abs_err {err} > {ATOL[name]}")
+    out = {"max_abs_err": err, "atol": ATOL[name]}
+    if name == "bfloat16":
+        scale = want.float().abs().amax(dim=-1).clamp_min(1e-30)
+        rel = float((diff.amax(dim=-1) / scale).max().item())
+        gate(rel <= BF16_ROW_RTOL, f"{what} {name}: an output row is off "
+             f"by {rel} of its scale > {BF16_ROW_RTOL}")
+        out.update(max_row_rel_err=rel, row_rtol=BF16_ROW_RTOL)
+    return out
+
+
+def _attn_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks keep in one (batch, head)."""
+    i = np.arange(sq)
+    hi = np.minimum(sk, i + 1) if causal else np.full(sq, sk)
+    lo = np.maximum(0, i - window + 1) if window > 0 else np.zeros(sq, int)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def _library_ms(dev, reps: int, q, k, v, **kw):
+    """One PyTorch call computing the same attention, timed only:
+    ``scaled_dot_product_attention`` with GQA (K/V repeated first where
+    this torch lacks ``enable_gqa``)."""
+    import torch.nn.functional as F
+    try:
+        F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+        fn, note = (lambda: F.scaled_dot_product_attention(
+            q, k, v, enable_gqa=True, **kw)), "enable_gqa"
+    except TypeError:
+        g = q.shape[1] // k.shape[1]
+        kx, vx = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+        fn, note = (lambda: F.scaled_dot_product_attention(
+            q, kx, vx, **kw)), "K/V repeated first"
+    return time_ms(fn, dev, reps), note
+
+
+def phase_flash_attention(dev, b: int, s: int, hq: int, hkv: int, d: int,
+                          window: int, ragged_s: int, seed: int,
+                          reps: int) -> Dict:
+    """``flash_attention`` against its plain version: granite's prefill
+    shape in bfloat16 (causal; timed, with its bound and SDPA's time), a
+    float32 case with a ragged tail, and a bfloat16 sliding window."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = _generator(dev, seed)
+
+    def case(dtype, sq, win):
+        q, k, v = _randn(g, dev, dtype, (b, hq, sq, d), (b, hkv, sq, d),
+                         (b, hkv, sq, d))
+        return (q, k, v), _check_close(
+            f"flash_attention S={sq} window={win}",
+            flash_attention(q, k, v, causal=True, window=win),
+            flash_attention_ref(q, k, v, causal=True, window=win))
+
+    (q, k, v), close = case(torch.bfloat16, s, 0)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True), dev, reps)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True),
+                       dev, max(reps // 10, 1))
+    library_ms, library_note = _library_ms(dev, reps, q, k, v,
+                                           is_causal=True)
+    pairs = b * hq * _attn_pairs(s, s, True, 0)
+    b_main = bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                   4 * d * pairs, H100_BF16_OPS_PER_S)
+    _, close_ragged = case(torch.float32, ragged_s, 0)
+    (qw, kw, vw), close_window = case(torch.bfloat16, s, window)
+    window_ms = time_ms(lambda: flash_attention(qw, kw, vw, window=window),
+                        dev, reps)
+    b_window = bound(2 * (2 * qw.numel() + kw.numel() + vw.numel()),
+                     4 * d * b * hq * _attn_pairs(s, s, True, window),
+                     H100_BF16_OPS_PER_S)
+    return {"phase": "flash_attention", "shape": [b, hq, hkv, s, d],
+            "dtype": "bfloat16", "causal": True, **close,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": f"scaled_dot_product_attention ({library_note})",
+            **b_main,
+            "ragged_float32": {"s": ragged_s, **close_ragged},
+            "window_bfloat16": {"window": window, **close_window,
+                                "ms": window_ms,
+                                "bound_ms": b_window["bound_ms"],
+                                "bound_by": b_window["bound_by"]}}
+
+
+def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int, s: int,
+                           step: int, seed: int, reps: int) -> Dict:
+    """``decode_attention`` against its plain version at granite's decode
+    shape with ragged lengths ``s - step * i``: bfloat16 (timed, with its
+    bound and SDPA's time) and float32."""
+    import torch
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    g = _generator(dev, seed)
+    lengths = torch.tensor([s - step * i for i in range(b)],
+                           dtype=torch.int32, device=dev)
+    close = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = _randn(g, dev, dtype, (b, hq, d), (b, hkv, s, d),
+                         (b, hkv, s, d))
+        close[str(dtype).split(".")[-1]] = _check_close(
+            "decode_attention", decode_attention(q, k, v, lengths),
+            decode_attention_ref(q, k, v, lengths))
+    ms = time_ms(lambda: decode_attention(q, k, v, lengths), dev, reps)
+    plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, lengths), dev,
+                       max(reps // 10, 1))
+    mask = (torch.arange(s, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    library_ms, library_note = _library_ms(dev, reps, q[:, :, None], k, v,
+                                           attn_mask=mask)
+    valid = int(lengths.sum().item())
+    b_dec = bound(2 * hkv * d * valid * 2 + 2 * 2 * q.numel() + 4 * b,
+                  4 * d * hq * valid, H100_BF16_OPS_PER_S)
+    return {"phase": "decode_attention", "shape": [b, hq, hkv, s, d],
+            "lengths": lengths.tolist(), "dtype": "bfloat16",
+            **close["bfloat16"], "float32": close["float32"],
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": f"scaled_dot_product_attention with a length mask "
+                       f"({library_note})", **b_dec}
+
+
+def _attn_kernels():
+    from repro_torch.kernels.decode_attention import kernel as dec
+    from repro_torch.kernels.flash_attention import kernel as fa
+    return fa, dec
+
+
+def _reset_attn_launches() -> None:
+    for k in _attn_kernels():
+        k.reset_launches()
+
+
+def _attn_launches() -> Dict[str, int]:
+    fa, dec = _attn_kernels()
+    return {**fa.launches, **dec.launches}
+
+
+def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
+                         cache_len: int, seed: int) -> Dict:
+    """``cfg`` with float32 weights from a seeded generator (TF32 off):
+    the forward's logits at every position against token-by-token
+    ``decode_step``, at the reference's ``atol=5e-4``."""
+    import torch
+    from repro_torch.models.lm import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gate(not torch.backends.cuda.matmul.allow_tf32, "TF32 is on")
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    model.init(_generator(dev, seed))
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    tokens = torch.from_numpy(rng(seed).integers(
+        0, cfg.vocab_size, size=(batch, n_tokens))).to(dev)
+    _reset_attn_launches()
+    worst = 0.0
+    with torch.inference_mode():
+        fwd, _ = model.forward({"tokens": tokens})
+        cache = model.init_cache(batch, cache_len, dtype=torch.float32)
+        for t in range(n_tokens):
+            logits, cache = model.decode_step(
+                tokens[:, t], cache,
+                torch.full((batch,), t, dtype=torch.int32, device=dev))
+            worst = max(worst, _max_err(logits, fwd[:, t]))
+        finite = bool(torch.isfinite(fwd).all().item())
+        scale = float(fwd.abs().max().item())
+    sync(dev)
+    launches = _attn_launches()
+    gate(finite, "forward logits are not finite")
+    gate(worst <= DECODE_ATOL, f"decode differs from forward by {worst}")
+    if dev.type == "cuda":
+        gate(launches == {"flash_attention": cfg.n_layers,
+                          "decode_attention": cfg.n_layers * n_tokens},
+             f"attention launches {launches}")
+    return {"phase": "lm_consistency", "arch": cfg.name,
+            "params": cfg.param_count(), "dtype": "float32",
+            "batch": batch, "tokens": n_tokens, "cache_len": cache_len,
+            "init_s": init_s, "max_abs_err": worst, "atol": DECODE_ATOL,
+            "max_abs_logit": scale, "launches": launches}
+
+
+def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
+                   n_requests: int, prompt0: int, prompt_step: int,
+                   max_new: int, cache_len: int, profile_steps: int,
+                   seed: int) -> Dict:
+    """``cfg`` with bfloat16 weights and cache: (a) ``prefill`` over
+    ``prefill_batch`` prompts of ``prefill_len`` tokens; (b)
+    ``ServeEngine.generate`` on ``n_requests`` prompts of ``prompt0 +
+    prompt_step * i`` tokens, ``max_new`` new tokens each. Launch counts
+    are zeroed just before each and read just after. A repeat of (b),
+    traced over its last ``profile_steps`` steps, gives the device's busy
+    time in those steps; over their untraced time in (b) that is the
+    device's idle share."""
+    import torch
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import Request, ServeEngine
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(_generator(dev, seed))
+    r = rng(seed)
+    v = cfg.vocab_size
+    out: Dict = {"phase": "lm_serve", "arch": cfg.name,
+                 "params": cfg.param_count(), "dtype": "bfloat16"}
+
+    # (a) prefill
+    batch = {"tokens": torch.from_numpy(
+        r.integers(0, v, size=(prefill_batch, prefill_len))).to(dev)}
+    with torch.inference_mode():
+        model.prefill(batch, prefill_len)           # warm-up
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _reset_attn_launches()
+        t0 = time.perf_counter()
+        logits = model.prefill(batch, prefill_len)
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        launches_a = _attn_launches()
+        gate(tuple(logits.shape) == (prefill_batch, v)
+             and bool(torch.isfinite(logits).all().item()),
+             "prefill logits are not finite (B, V)")
+    del logits
+    out["prefill"] = {
+        "batch": prefill_batch, "tokens": prefill_len, "ms": prefill_s * 1e3,
+        "tokens_per_s": prefill_batch * prefill_len / prefill_s,
+        "launches": launches_a,
+        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None)}
+
+    # (b) generate, every step's logits checked finite on the device; the
+    # hooks run before each step with its index
+    flags: List = []
+    hooks: List[Callable[[int], None]] = []
+    step = model.decode_step
+
+    def checked(tokens, cache, pos):
+        for hook in hooks:
+            hook(len(flags))
+        logits, cache = step(tokens, cache, pos)
+        flags.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    model.decode_step = checked
+    prompts = [[int(t) for t in
+                r.integers(0, v, size=prompt0 + prompt_step * i)]
+               for i in range(n_requests)]
+    steps = max(len(p) for p in prompts) + max_new
+    gate(0 < profile_steps <= steps, "profile_steps outside 1..steps")
+    tail_from = steps - profile_steps
+    engine = ServeEngine(model, cache_len=cache_len,
+                         cache_dtype=torch.bfloat16)
+
+    def generate(at_tail: Callable[[], object] = lambda: None):
+        """The requests through ``engine.generate``. Before the last
+        ``profile_steps`` steps it syncs and calls ``at_tail``. Returns
+        the requests and the seconds of the run and of those steps."""
+        reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+        tail_t0: List[float] = []
+
+        def tail(i):
+            if i == tail_from:
+                sync(dev)
+                at_tail()
+                tail_t0.append(time.perf_counter())
+
+        flags.clear()
+        hooks[:] = [tail]
+        t0 = time.perf_counter()
+        engine.generate(reqs)
+        sync(dev)
+        t1 = time.perf_counter()
+        return reqs, t1 - t0, t1 - tail_t0[0]
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _reset_attn_launches()
+    reqs, gen_s, tail_s = generate()
+    launches_b = _attn_launches()
+    gate(all(len(q.out_tokens) == max_new
+             and all(0 <= t < v for t in q.out_tokens) for q in reqs),
+         "a request's tokens are missing or outside the vocab")
+    gate(len(flags) == steps and bool(torch.stack(flags).all().item()),
+         "a decode step's logits are not finite")
+    if dev.type == "cuda":
+        gate(launches_a == {"flash_attention": cfg.n_layers,
+                            "decode_attention": 0},
+             f"prefill attention launches {launches_a}")
+        gate(launches_b == {"flash_attention": 0,
+                            "decode_attention": cfg.n_layers * steps},
+             f"generate attention launches {launches_b}")
+    gen = out["generate"] = {
+        "requests": n_requests,
+        "prompt_lens": [len(q.prompt) for q in reqs],
+        "max_new_tokens": max_new, "cache_len": cache_len,
+        "decode_steps": steps, "s": gen_s,
+        "ms_per_decode_step": gen_s * 1e3 / steps,
+        "generated_tokens_per_s": n_requests * max_new / gen_s,
+        "tail_steps": profile_steps,
+        "tail_ms_per_step": tail_s * 1e3 / profile_steps,
+        "launches": launches_b,
+        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                              if dev.type == "cuda" else None),
+        "first_tokens": reqs[0].out_tokens[:8]}
+
+    if dev.type == "cuda":
+        # a repeat of the same requests, traced over the same last steps
+        prof = _profiler()
+        again, _, traced_s = generate(prof.start)
+        prof.stop()
+        busy_ms, heaviest = _device_time(prof, top=12)
+        out["profiled"] = {
+            "run": f"a repeat of (b), traced over its last {profile_steps} "
+                   f"decode steps",
+            "decode_steps": profile_steps,
+            "same_tokens": ([q.out_tokens for q in again]
+                            == [q.out_tokens for q in reqs]),
+            "wall_ms_per_step": traced_s * 1e3 / profile_steps,
+            "device_busy_ms_per_step": (None if busy_ms is None
+                                        else busy_ms / profile_steps),
+            "device_idle_share_traced": (None if busy_ms is None
+                                         else 1.0 - busy_ms / 1e3 / traced_s),
+            "heaviest_device_ms": heaviest}
+        if busy_ms is not None:
+            # the traced steps' device time over the untraced time of the
+            # same steps in (b) (the profiler slows the host, not the
+            # device)
+            gen["device_idle_share"] = 1.0 - (
+                busy_ms / profile_steps) / gen["tail_ms_per_step"]
+    del model.decode_step
+    return out
+
+
+def kernel_line(phases: Dict[str, Dict], launches: Dict[str, int]) -> Dict:
+    """One row per kernel: ``phases[name]`` holds its comparison with the
+    plain version and its times, ``launches[name]`` its launches on the
+    path that drives it."""
+    rows = []
+    for name, (source, replaces) in KERNELS.items():
+        ph = phases[name]
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launches[name],
+                     "max_abs_err": ph["max_abs_err"], "ms": ph["ms"],
+                     "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
+                     "bound_by": ph["bound_by"],
+                     "library_ms": ph.get("library_ms")})
+    return {"kernels": rows}
 
 
 def main() -> int:
@@ -425,6 +859,7 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 1
     try:
+        from repro_torch.config import get_arch
         from repro_torch.core.ml.gbdt import default_models
     except ImportError as e:
         print(f"chip_smoke: the port is not beside this script: {e}",
@@ -436,6 +871,8 @@ def main() -> int:
     for line in device["nvidia_smi"]:
         print(line, flush=True)
     emit(phase_build())
+
+    # CARAT's fleet-tuning loop
     m_read, _ = default_models()
     # the main path's shape (one bootstrap pick: 63 candidate rows), then
     # the cross product of a 4096-client probe batch
@@ -447,7 +884,33 @@ def main() -> int:
     emit(phase_fleet(dev, 100_000, 16, seed=0))
     carat = phase_carat(dev, 4096, 20, seed=0, node_size=16, flip_at=5.0)
     emit(carat)
-    emit(kernel_line(logits_small, grid, carat["launches"]))
+
+    # the LM serving path: granite-3-2b at full width and depth
+    granite = get_arch("granite-3-2b")
+    hd = granite.resolved_head_dim
+    fa = phase_flash_attention(dev, 4, 2048, granite.n_heads,
+                               granite.n_kv_heads, hd, window=512,
+                               ragged_s=1000, seed=4, reps=10)
+    emit(fa)
+    dec = phase_decode_attention(dev, 8, granite.n_heads, granite.n_kv_heads,
+                                 hd, 4096, step=37, seed=5, reps=50)
+    emit(dec)
+    emit(phase_lm_consistency(dev, granite, batch=2, n_tokens=16,
+                              cache_len=32, seed=6))
+    torch.cuda.empty_cache()
+    serve = phase_lm_serve(dev, granite, prefill_batch=4, prefill_len=2048,
+                           n_requests=8, prompt0=128, prompt_step=48,
+                           max_new=64, cache_len=1024, profile_steps=32,
+                           seed=7)
+    emit(serve)
+
+    emit(kernel_line(
+        {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
+         "flash_attention": fa, "decode_attention": dec},
+        {**carat["launches"],
+         "flash_attention": serve["prefill"]["launches"]["flash_attention"],
+         "decode_attention":
+             serve["generate"]["launches"]["decode_attention"]}))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,1 +1,8 @@
-"""Configuration data of the port (the CARAT spaces only)."""
+"""Configuration data of the port: the CARAT spaces
+(:mod:`repro_torch.configs.carat_defaults`) and one module per
+architecture of the LM serving path. Importing this package registers
+the architectures."""
+from repro_torch.configs import (  # noqa: F401
+    granite_3_2b,
+    h2o_danube_1_8b,
+)

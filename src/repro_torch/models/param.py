@@ -1,0 +1,88 @@
+"""Parameter specs: one source of truth for shape, init and logical axes
+(the port's copy of ``repro/models/param.py``).
+
+Every model module builds a nested dict of :class:`ParamSpec` leaves
+(lists hold per-layer dicts). ``materialize(specs, generator, ...)``
+turns it into real tensors with the reference's init rules, and
+``count_tree_params`` counts it. The logical axes are kept for the
+distribution layer; ``abstract`` and ``logical_to_pspec`` wait for the
+port's ``parallel/`` slice.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Optional, Tuple
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+
+
+@dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]         # logical axis per dim
+    dtype: torch.dtype = torch.bfloat16
+    init: str = "normal"                    # normal | zeros | ones
+    init_scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} vs axes {self.axes}")
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def spec_tree_map(fn: Callable[[ParamSpec], Any], tree):
+    """``fn`` over every spec of a tree of dicts and lists."""
+    if is_spec(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: spec_tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(spec_tree_map(fn, v) for v in tree)
+    raise TypeError(f"not a spec tree: {type(tree)}")
+
+
+def init_tensor(s: ParamSpec, generator: torch.Generator,
+                dtype: Optional[torch.dtype] = None,
+                device: DeviceLike = None) -> torch.Tensor:
+    """One parameter by the reference's rules: zeros, ones, or a standard
+    normal times ``init_scale / sqrt(fan_in)`` (``fan_in`` is the first
+    dim of a matrix, the size of a vector), drawn in float32 on
+    ``generator``'s device and cast to ``dtype``."""
+    dev = resolve_device(device)
+    dt = dtype or s.dtype
+    if s.init == "zeros":
+        return torch.zeros(s.shape, dtype=dt, device=dev)
+    if s.init == "ones":
+        return torch.ones(s.shape, dtype=dt, device=dev)
+    fan_in = s.shape[0] if len(s.shape) >= 2 else max(s.shape[-1], 1)
+    scale = s.init_scale / math.sqrt(max(fan_in, 1))
+    w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
+                    device=generator.device)
+    return (w * scale).to(device=dev, dtype=dt)
+
+
+def materialize(tree, generator: torch.Generator,
+                dtype: Optional[torch.dtype] = None,
+                device: DeviceLike = None):
+    """Real tensors for every spec, drawn in tree order from
+    ``generator``."""
+    dev = resolve_device(device)
+    return spec_tree_map(
+        lambda s: init_tensor(s, generator, dtype, dev), tree)
+
+
+def count_tree_params(tree) -> int:
+    n = [0]
+
+    def add(s: ParamSpec):
+        n[0] += math.prod(s.shape)
+        return s
+
+    spec_tree_map(add, tree)
+    return n[0]

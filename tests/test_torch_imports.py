@@ -47,7 +47,7 @@ def test_port_imports_without_jax_or_reference():
     proc = _run(_BLOCKED_IMPORTS)
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked = proc.stdout.strip().split(" ", 1)
-    assert int(n_modules) >= 25
+    assert int(n_modules) >= 56
     assert leaked == "[]"
 
 
