@@ -2,8 +2,10 @@
 """Chip smoke run of the PyTorch/CUDA port: its main paths on one GPU.
 
 Builds every CUDA kernel of ``src/repro_torch`` (one ``nvcc`` per
-source, all at once) and holds each against its plain torch version on
-the card. Then it drives the port's two paths:
+source, all at once; the flash-attention library must hold tensor-core
+instructions) and holds each against its plain torch version on the
+card, at the shapes the paths give it. Then it drives the port's two
+paths:
 
 * CARAT's online co-tuning loop: the 100k-client ``soa-torch`` fleet
   against the host ``soa`` core, then ``CaratPolicy`` over a fleet of
@@ -28,12 +30,14 @@ prints no result.
 from __future__ import annotations
 
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
@@ -118,6 +122,35 @@ def time_ms(fn: Callable[[], object], dev, reps: int) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def graph_ms(fn: Callable[[], object], dev, reps: int) -> float:
+    """Mean device milliseconds of ``fn`` per call: ``reps`` calls
+    captured in one CUDA graph (after a warm-up call on a side stream),
+    the graph replayed and timed with CUDA events, so the host's work
+    between launches is left out; the host clock elsewhere."""
+    import torch
+    if dev.type != "cuda":
+        return time_ms(fn, dev, reps)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    sync(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
 def bound(bytes_moved: float, ops: float,
           ops_per_s: float = H100_F32_OPS_PER_S) -> Dict:
     """Least time the card could take: the larger of the bytes over the
@@ -161,20 +194,49 @@ def _ptxas_summary(report: str) -> Dict:
             "spill_store_bytes": sum(spills)}
 
 
+# tensor-core instructions in SASS: warpgroup (wgmma) and warp (mma.sync)
+TENSOR_CORE_OPS = ("HGMMA", "HMMA")
+
+
+def tensor_core_counts(sass: str) -> Dict[str, int]:
+    """How many tensor-core instructions a ``cuobjdump -sass`` listing
+    holds, by opcode."""
+    return {op: len(re.findall(rf"\b{op}\b", sass))
+            for op in TENSOR_CORE_OPS}
+
+
+def sass_tensor_core_counts(library: Path) -> Optional[Dict[str, int]]:
+    """``tensor_core_counts`` of a built library's SASS, or None where
+    the toolkit has no ``cuobjdump``."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    return tensor_core_counts(sass)
+
+
 def phase_build() -> Dict:
-    """Every kernel library, one ``nvcc`` each, all started together."""
+    """Every kernel library, one ``nvcc`` each, all started together; the
+    tensor-core instructions of each one's SASS. The flash-attention
+    library must hold some (its bfloat16 kernel runs on wgmma)."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(lib):
         t0 = time.perf_counter()
         path, report = lib.build()
         return {"seconds": time.perf_counter() - t0, "library": path.name,
-                **_ptxas_summary(report)}
+                **_ptxas_summary(report),
+                "tensor_core_instructions": sass_tensor_core_counts(path)}
 
     t0 = time.perf_counter()
     libs = _libraries()
     with ThreadPoolExecutor(len(libs)) as ex:
         done = dict(zip(libs, ex.map(one, libs.values())))
+    tc = done["flash_attention"]["tensor_core_instructions"]
+    gate(tc is not None and sum(tc.values()) > 0,
+         f"the flash-attention library holds no tensor-core instruction "
+         f"({tc})")
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "libraries": done}
 
@@ -526,10 +588,10 @@ def _attn_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def _library_ms(dev, reps: int, q, k, v, **kw):
-    """One PyTorch call computing the same attention, timed only:
-    ``scaled_dot_product_attention`` with GQA (K/V repeated first where
-    this torch lacks ``enable_gqa``)."""
+def _library_ms(dev, reps: int, q, k, v, timer=time_ms, **kw):
+    """One PyTorch call computing the same attention, timed only (by
+    ``timer``): ``scaled_dot_product_attention`` with GQA (K/V repeated
+    first where this torch lacks ``enable_gqa``)."""
     import torch.nn.functional as F
     try:
         F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
@@ -540,27 +602,46 @@ def _library_ms(dev, reps: int, q, k, v, **kw):
         kx, vx = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
         fn, note = (lambda: F.scaled_dot_product_attention(
             q, kx, vx, **kw)), "K/V repeated first"
-    return time_ms(fn, dev, reps), note
+    return timer(fn, dev, reps), note
 
 
 def phase_flash_attention(dev, b: int, s: int, hq: int, hkv: int, d: int,
                           window: int, ragged_s: int, seed: int,
                           reps: int) -> Dict:
     """``flash_attention`` against its plain version: granite's prefill
-    shape in bfloat16 (causal; timed, with its bound and SDPA's time), a
-    float32 case with a ragged tail, and a bfloat16 sliding window."""
+    shape in bfloat16 (causal; timed, with its bound, the plain version's
+    and SDPA's time), a float32 case with a ragged tail, and a bfloat16
+    sliding window (timed likewise, SDPA with a boolean window mask).
+    Each case reports the launches of each of the two kernels; on the
+    card the bfloat16 cases must take the tensor-core kernel and the
+    float32 one the SIMT kernel."""
     import torch
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.kernel import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                          flash_attention_ref)
     g = _generator(dev, seed)
 
     def case(dtype, sq, win):
         q, k, v = _randn(g, dev, dtype, (b, hq, sq, d), (b, hkv, sq, d),
                          (b, hkv, sq, d))
-        return (q, k, v), _check_close(
-            f"flash_attention S={sq} window={win}",
-            flash_attention(q, k, v, causal=True, window=win),
-            flash_attention_ref(q, k, v, causal=True, window=win))
+        before = dict(fa.launches)
+        got = flash_attention(q, k, v, causal=True, window=win)
+        sync(dev)
+        tc = fa.launches["flash_attention_tc"] - before["flash_attention_tc"]
+        launches = {"tensor_core": tc,
+                    "simt": fa.launches["flash_attention"]
+                    - before["flash_attention"] - tc}
+        if dev.type == "cuda":
+            want = ({"tensor_core": 1, "simt": 0}
+                    if dtype == torch.bfloat16 else
+                    {"tensor_core": 0, "simt": 1})
+            gate(launches == want, f"flash_attention {dtype} S={sq} "
+                                   f"took {launches}, not {want}")
+        return (q, k, v), {**_check_close(
+            f"flash_attention S={sq} window={win}", got,
+            flash_attention_ref(q, k, v, causal=True, window=win)),
+            "launches": launches}
 
     (q, k, v), close = case(torch.bfloat16, s, 0)
     ms = time_ms(lambda: flash_attention(q, k, v, causal=True), dev, reps)
@@ -575,6 +656,12 @@ def phase_flash_attention(dev, b: int, s: int, hq: int, hkv: int, d: int,
     (qw, kw, vw), close_window = case(torch.bfloat16, s, window)
     window_ms = time_ms(lambda: flash_attention(qw, kw, vw, window=window),
                         dev, reps)
+    window_plain_ms = time_ms(
+        lambda: flash_attention_ref(qw, kw, vw, window=window), dev,
+        max(reps // 10, 1))
+    mask = attention_mask(s, s, causal=True, window=window, device=dev)
+    window_library_ms, _ = _library_ms(dev, reps, qw, kw, vw,
+                                       attn_mask=mask)
     b_window = bound(2 * (2 * qw.numel() + kw.numel() + vw.numel()),
                      4 * d * b * hq * _attn_pairs(s, s, True, window),
                      H100_BF16_OPS_PER_S)
@@ -586,44 +673,69 @@ def phase_flash_attention(dev, b: int, s: int, hq: int, hkv: int, d: int,
             "ragged_float32": {"s": ragged_s, **close_ragged},
             "window_bfloat16": {"window": window, **close_window,
                                 "ms": window_ms,
+                                "plain_ms": window_plain_ms,
+                                "library_ms": window_library_ms,
+                                "library": "scaled_dot_product_attention "
+                                           "with a boolean window mask",
                                 "bound_ms": b_window["bound_ms"],
                                 "bound_by": b_window["bound_by"]}}
 
 
-def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int, s: int,
-                           step: int, seed: int, reps: int) -> Dict:
-    """``decode_attention`` against its plain version at granite's decode
-    shape with ragged lengths ``s - step * i``: bfloat16 (timed, with its
-    bound and SDPA's time) and float32."""
+def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int,
+                           path_s: int, path_len: int, s: int, step: int,
+                           seed: int, reps: int) -> Dict:
+    """``decode_attention`` against its plain version, bfloat16 and
+    float32, at granite's decode heads in two cases, each timed in
+    bfloat16 with its bound, the plain version's and SDPA's (with a
+    length mask) time and its cache splits: the path's shape, a
+    ``path_s``-position cache with every length ``path_len`` (the
+    top-level numbers), and a long cache of ``s`` positions with ragged
+    lengths ``s - step * i``."""
     import torch
+    from repro_torch.kernels.decode_attention import kernel as dec
     from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     g = _generator(dev, seed)
-    lengths = torch.tensor([s - step * i for i in range(b)],
-                           dtype=torch.int32, device=dev)
-    close = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v = _randn(g, dev, dtype, (b, hq, d), (b, hkv, s, d),
-                         (b, hkv, s, d))
-        close[str(dtype).split(".")[-1]] = _check_close(
-            "decode_attention", decode_attention(q, k, v, lengths),
-            decode_attention_ref(q, k, v, lengths))
-    ms = time_ms(lambda: decode_attention(q, k, v, lengths), dev, reps)
-    plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, lengths), dev,
-                       max(reps // 10, 1))
-    mask = (torch.arange(s, device=dev)[None, :]
-            < lengths[:, None])[:, None, None, :]
-    library_ms, library_note = _library_ms(dev, reps, q[:, :, None], k, v,
-                                           attn_mask=mask)
-    valid = int(lengths.sum().item())
-    b_dec = bound(2 * hkv * d * valid * 2 + 2 * 2 * q.numel() + 4 * b,
-                  4 * d * hq * valid, H100_BF16_OPS_PER_S)
-    return {"phase": "decode_attention", "shape": [b, hq, hkv, s, d],
-            "lengths": lengths.tolist(), "dtype": "bfloat16",
-            **close["bfloat16"], "float32": close["float32"],
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": f"scaled_dot_product_attention with a length mask "
-                       f"({library_note})", **b_dec}
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+
+    def case(cache: int, lengths: List[int]) -> Dict:
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        close = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _randn(g, dev, dtype, (b, hq, d), (b, hkv, cache, d),
+                             (b, hkv, cache, d))
+            close[str(dtype).split(".")[-1]] = _check_close(
+                f"decode_attention S={cache}",
+                decode_attention(q, k, v, lens),
+                decode_attention_ref(q, k, v, lens))
+        # a few microseconds of device time: the kernel and SDPA are timed
+        # by graph replay (the wrappers' host work per call, which an
+        # event-timed loop would measure instead, is call_ms)
+        ms = graph_ms(lambda: decode_attention(q, k, v, lens), dev, reps)
+        call_ms = time_ms(lambda: decode_attention(q, k, v, lens), dev, reps)
+        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, lens), dev,
+                           max(reps // 10, 1))
+        mask = (torch.arange(cache, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+        library_ms, library_note = _library_ms(dev, reps, q[:, :, None], k,
+                                               v, timer=graph_ms,
+                                               attn_mask=mask)
+        valid = sum(lengths)
+        b_dec = bound(2 * hkv * d * valid * 2 + 2 * 2 * q.numel() + 4 * b,
+                      4 * d * hq * valid, H100_BF16_OPS_PER_S)
+        return {"cache": cache, "lengths": lengths, "dtype": "bfloat16",
+                **close["bfloat16"], "float32": close["float32"],
+                "splits": dec.decode_splits(b, hkv, hq // hkv, cache, sms),
+                "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                "library_ms": library_ms,
+                "library": f"scaled_dot_product_attention with a length "
+                           f"mask ({library_note})", **b_dec}
+
+    path = case(path_s, [path_len] * b)
+    long = case(s, [s - step * i for i in range(b)])
+    return {"phase": "decode_attention", "shape": [b, hq, hkv, path_s, d],
+            **path, "long_cache": long}
 
 
 def _attn_kernels():
@@ -676,7 +788,9 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
     gate(finite, "forward logits are not finite")
     gate(worst <= DECODE_ATOL, f"decode differs from forward by {worst}")
     if dev.type == "cuda":
+        # float32: the SIMT kernel of flash_attention
         gate(launches == {"flash_attention": cfg.n_layers,
+                          "flash_attention_tc": 0,
                           "decode_attention": cfg.n_layers * n_tokens},
              f"attention launches {launches}")
     return {"phase": "lm_consistency", "arch": cfg.name,
@@ -788,10 +902,12 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     gate(len(flags) == steps and bool(torch.stack(flags).all().item()),
          "a decode step's logits are not finite")
     if dev.type == "cuda":
+        # bfloat16: every prefill launch on the tensor-core kernel
         gate(launches_a == {"flash_attention": cfg.n_layers,
+                            "flash_attention_tc": cfg.n_layers,
                             "decode_attention": 0},
              f"prefill attention launches {launches_a}")
-        gate(launches_b == {"flash_attention": 0,
+        gate(launches_b == {"flash_attention": 0, "flash_attention_tc": 0,
                             "decode_attention": cfg.n_layers * steps},
              f"generate attention launches {launches_b}")
     gen = out["generate"] = {
@@ -892,8 +1008,11 @@ def main() -> int:
                                granite.n_kv_heads, hd, window=512,
                                ragged_s=1000, seed=4, reps=10)
     emit(fa)
+    # the path's decode shape (ServeEngine's static batch: every row at
+    # one length over a 1024-position cache), then a long ragged cache
     dec = phase_decode_attention(dev, 8, granite.n_heads, granite.n_kv_heads,
-                                 hd, 4096, step=37, seed=5, reps=50)
+                                 hd, path_s=1024, path_len=512, s=4096,
+                                 step=37, seed=5, reps=200)
     emit(dec)
     emit(phase_lm_consistency(dev, granite, batch=2, n_tokens=16,
                               cache_len=32, seed=6))

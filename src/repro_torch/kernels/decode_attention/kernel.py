@@ -11,8 +11,13 @@ The wrapper takes its plain torch version (``ref.py``) only for tensors
 on the CPU. For CUDA tensors it launches the kernel on the current
 stream or raises: there is no fallback. q, k and v are read through
 their strides (the last dim dense); ``lengths`` must be a contiguous
-int32 tensor on the same device. ``launches`` counts the kernel
-launches.
+int32 tensor on the same device. ``launches`` counts the calls: each
+launches the split and the combine kernel from one C entry point.
+
+The number of cache splits is :func:`decode_splits`, a function of the
+shapes alone: the wrapper never reads ``lengths`` (or any device value)
+on the host, so the call can be captured in a CUDA graph and replayed
+after ``lengths`` changes in place.
 """
 from __future__ import annotations
 
@@ -30,6 +35,13 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "decode_attention.cu"
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
+# the split kernel's grid: blocks enough for SM_WAVES waves on the card,
+# no split shorter than MIN_SPLIT cache positions
+SM_WAVES = 4
+MIN_SPLIT = 128
+# most query heads per block of the split kernel
+MAX_GROUP_TILE = 8
+
 launches: Dict[str, int] = {"decode_attention": 0}
 
 
@@ -40,12 +52,28 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.decode_attention_launch.argtypes = (
-        [P, P, P, P, P, I, I, I, I, I, I, I] + [L] * 8 + [F, P])
+        [P] * 6 + [I] * 8 + [L] * 8 + [F, P])
     lib.decode_attention_launch.restype = I
     lib.decode_attention_max_head_dim.restype = I
+    lib.decode_attention_max_group_tile.restype = I
     if lib.decode_attention_max_head_dim() != MAX_HEAD_DIM:
         raise RuntimeError("decode_attention.cu's head-dim limit differs "
                            "from MAX_HEAD_DIM")
+    if lib.decode_attention_max_group_tile() != MAX_GROUP_TILE:
+        raise RuntimeError("decode_attention.cu's group tile differs "
+                           "from MAX_GROUP_TILE")
+
+
+def decode_splits(b: int, hkv: int, group: int, s: int,
+                  sms: int = 132) -> int:
+    """Splits of an S-position cache: enough blocks of the split kernel
+    (B x Hkv x group tiles of up to MAX_GROUP_TILE heads x splits) for
+    SM_WAVES waves on ``sms`` SMs, but no split shorter than MIN_SPLIT
+    positions (one split below that). A function of the shapes only,
+    never of ``lengths``."""
+    blocks = b * hkv * -(-group // MAX_GROUP_TILE)
+    want = -(-SM_WAVES * sms // max(blocks, 1))
+    return max(1, min(want, s // MIN_SPLIT))
 
 
 LIBRARY = CudaLibrary(SOURCE, _bind)
@@ -87,11 +115,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty((b, hq, d), dtype=q.dtype, device=dev)
     if out.numel() == 0:
         return out
+    n_split = decode_splits(
+        b, hkv, hq // hkv, s,
+        torch.cuda.get_device_properties(dev).multi_processor_count)
+    # the splits' float32 partials: (m, l) pairs, then acc rows
+    ws = torch.empty(b * hq * n_split * (d + 2), dtype=torch.float32,
+                     device=dev)
     launch(launches, "decode_attention", dev,
            LIBRARY.get().decode_attention_launch,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-           out.data_ptr(), DTYPES[q.dtype], DTYPES[k.dtype],
-           b, hq, hkv, s, d,
+           out.data_ptr(), ws.data_ptr(), DTYPES[q.dtype], DTYPES[k.dtype],
+           b, hq, hkv, s, d, n_split,
            *q.stride()[:2], *k.stride()[:3], *v.stride()[:3],
            ctypes.c_float(scale_val))
     return out

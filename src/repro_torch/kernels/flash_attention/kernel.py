@@ -12,7 +12,14 @@ on the CPU. For CUDA tensors it launches the kernel on the current
 stream or raises: there is no fallback. The kernel reads q, k and v
 through their (batch, head, position) strides, so the transposed views
 of ``_split_heads`` need no copy; only the last dim must be dense.
-``launches`` counts the kernel launches.
+
+The source holds two kernels. :func:`takes_tensor_cores` is the one rule
+that picks between them: bfloat16 operands with a head dim that is a
+multiple of 16 and 16-byte-aligned bases and strides go to the
+tensor-core kernel, everything else (float32, other head dims, other
+alignments) to the SIMT kernel. ``launches["flash_attention"]`` counts
+every launch and ``launches["flash_attention_tc"]`` those of the
+tensor-core kernel.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches: Dict[str, int] = {"flash_attention": 0}
+launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
 
 
 def reset_launches() -> None:
@@ -40,7 +47,7 @@ def reset_launches() -> None:
 
 def _bind(lib: ctypes.CDLL) -> None:
     lib.flash_attention_launch.argtypes = (
-        [P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + [F, I, I, P])
+        [P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + [F, I, I, I, P])
     lib.flash_attention_launch.restype = I
     lib.flash_attention_max_head_dim.restype = I
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
@@ -50,6 +57,23 @@ def _bind(lib: ctypes.CDLL) -> None:
 
 LIBRARY = CudaLibrary(SOURCE, _bind)
 build = LIBRARY.build
+
+
+def takes_tensor_cores(q: torch.Tensor, k: torch.Tensor,
+                       v: torch.Tensor) -> bool:
+    """Whether the tensor-core kernel takes these operands: all three
+    bfloat16 with a dense last dim, the head dim a multiple of 16 up to
+    MAX_HEAD_DIM, every base 16-byte aligned and every (batch, head,
+    position) stride a multiple of 8 elements. float32 stays on the SIMT
+    kernel: TF32 products cannot hold its 2e-5 tolerance."""
+    d = q.shape[-1]
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        return False
+    if d % 16 != 0 or d > MAX_HEAD_DIM:
+        return False
+    return all(t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+               and all(st % 8 == 0 for st in t.stride()[:3])
+               for t in (q, k, v))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -85,11 +109,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       device=dev).transpose(1, 2)
     if out.numel() == 0:
         return out
+    tc = takes_tensor_cores(q, k, v)
     launch(launches, "flash_attention", dev,
            LIBRARY.get().flash_attention_launch,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            *out.stride()[:3], ctypes.c_float(scale_val), int(causal),
-           int(window))
+           int(window), int(tc))
+    if tc:
+        launches["flash_attention_tc"] += 1
     return out

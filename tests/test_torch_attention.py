@@ -5,7 +5,8 @@ The same seeded NumPy inputs go through the port's ops on CPU tensors
 ``backend="pallas"`` (the TPU kernels in interpret mode, as
 ``tests/test_kernels.py`` runs them) and ``backend="xla"`` (the
 oracles). Tolerances are the reference tests': float32 ``atol=2e-5``,
-bfloat16 ``atol=2e-2`` (``tests/test_kernels.py:32,96``).
+bfloat16 ``atol=2e-2`` (``tests/test_kernels.py:32,96``). The file
+ends with the kernels' host-side rules, which need no card.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -167,3 +168,108 @@ def test_wrappers_check_shapes():
         flash_attention(q, k, k)
     with pytest.raises(ValueError, match="one shape"):
         decode_attention(q[:, :2, 0], k, k[:, :, :4])
+
+
+# ------------------------------------------------------ the kernels' rules
+# ``takes_tensor_cores`` sends operands to flash attention's tensor-core
+# kernel or to its SIMT one; ``decode_splits`` sizes the decode split
+# kernel's grid from the shapes alone. Both are host functions of dtypes,
+# shapes, strides and addresses, so they are held here, without a card.
+H100_SMS = 132
+
+
+def _zeros_qkv(dtype, d, s=32):
+    return (torch.zeros((2, 8, s, d), dtype=dtype),
+            torch.zeros((2, 2, s, d), dtype=dtype),
+            torch.zeros((2, 2, s, d), dtype=dtype))
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 192, 256])
+def test_tensor_cores_take_bf16_head_dims_of_16(d):
+    assert fa_kernel.takes_tensor_cores(*_zeros_qkv(torch.bfloat16, d))
+
+
+@pytest.mark.parametrize("dtype,d", [
+    (torch.float32, 64),               # TF32 cannot hold 2e-5
+    (torch.bfloat16, 24),              # not a multiple of 16
+    (torch.bfloat16, 8),
+    (torch.bfloat16, 100),
+])
+def test_simt_takes_the_rest(dtype, d):
+    assert not fa_kernel.takes_tensor_cores(*_zeros_qkv(dtype, d))
+
+
+def test_tensor_cores_need_every_operand_bf16():
+    q, k, v = _zeros_qkv(torch.bfloat16, 64)
+    assert not fa_kernel.takes_tensor_cores(q, k, v.float())
+
+
+def test_tensor_cores_read_transposed_views():
+    """The model's (B, S, H, D) projections viewed as (B, H, S, D)."""
+    q = torch.zeros((2, 40, 8, 64), dtype=torch.bfloat16).transpose(1, 2)
+    k = torch.zeros((2, 40, 2, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert fa_kernel.takes_tensor_cores(q, k, k)
+
+
+def test_tensor_cores_need_16_byte_alignment():
+    q, k, v = (torch.zeros((1, 4, 32, 72), dtype=torch.bfloat16)
+               for _ in range(3))
+    # D 64 views: strides of 72 elements (144 bytes) keep every row
+    # aligned; an offset of one element does not
+    assert fa_kernel.takes_tensor_cores(q[..., :64], k[..., :64],
+                                        v[..., :64])
+    assert not fa_kernel.takes_tensor_cores(q[..., 1:65], k[..., :64],
+                                            v[..., :64])
+    q, k, v = (torch.zeros((1, 4, 32, 68), dtype=torch.bfloat16)
+               for _ in range(3))
+    # strides of 68 elements (136 bytes): rows past the first misalign
+    assert not fa_kernel.takes_tensor_cores(q[..., :64], k[..., :64],
+                                            v[..., :64])
+
+
+def test_decode_splits_count_group_tiles():
+    """A group above MAX_GROUP_TILE heads takes two blocks per split, so
+    it needs half the splits for the same waves."""
+    s, g = 1 << 20, dec_kernel.MAX_GROUP_TILE
+    one = dec_kernel.decode_splits(1, 1, g, s, H100_SMS)
+    two = dec_kernel.decode_splits(1, 1, g + 4, s, H100_SMS)
+    assert one == dec_kernel.SM_WAVES * H100_SMS
+    assert two == one // 2
+
+
+@pytest.mark.parametrize("b,hkv,group,s", [
+    (8, 8, 4, 1024),       # granite's decode path: cache 1024
+    (8, 8, 4, 4096),
+    (1, 1, 4, 8192),       # the most splits
+    (2, 2, 12, 300),       # two group tiles
+    (64, 8, 4, 4096),      # enough blocks without splitting
+    (4, 8, 4, 100),        # a cache shorter than one split
+])
+def test_decode_splits_reach_the_waves_without_short_splits(b, hkv, group,
+                                                            s):
+    n = dec_kernel.decode_splits(b, hkv, group, s, H100_SMS)
+    blocks = b * hkv * -(-group // dec_kernel.MAX_GROUP_TILE) * n
+    assert n >= 1
+    if n > 1:        # no split shorter than the minimum
+        assert s // n >= dec_kernel.MIN_SPLIT
+    # the intended waves, unless the minimum split length caps n
+    assert (blocks >= dec_kernel.SM_WAVES * H100_SMS
+            or n == max(1, s // dec_kernel.MIN_SPLIT))
+
+
+def test_decode_splits_path_shapes():
+    assert dec_kernel.decode_splits(8, 8, 4, 1024, H100_SMS) == 8
+    assert dec_kernel.decode_splits(8, 8, 4, 4096, H100_SMS) == 9
+    assert dec_kernel.decode_splits(1, 1, 4, 8192, H100_SMS) == 64
+    assert dec_kernel.decode_splits(64, 8, 4, 4096, H100_SMS) == 2
+    assert dec_kernel.decode_splits(4, 8, 4, 100, H100_SMS) == 1
+
+
+def test_decode_splits_depend_on_shapes_only():
+    """The same shapes give the same count; the wrapper passes nothing
+    else (no lengths)."""
+    import inspect
+    params = inspect.signature(dec_kernel.decode_splits).parameters
+    assert list(params) == ["b", "hkv", "group", "s", "sms"]
+    assert len({dec_kernel.decode_splits(8, 8, 4, 1024, H100_SMS)
+                for _ in range(3)}) == 1

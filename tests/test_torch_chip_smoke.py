@@ -2,6 +2,9 @@
 the wrappers running their plain versions. It checks the script's paths,
 shapes and checks; only a run on the card can show that the kernels
 build and agree with the plain versions there."""
+import os
+import shutil
+
 import torch
 
 import chip_smoke
@@ -24,9 +27,24 @@ def test_kernel_phases_on_cpu():
                                           ragged_s=50, seed=4, reps=1)
     assert fa["max_abs_err"] == 0.0 and fa["library_ms"] > 0.0
     assert fa["bound_by"] == "bytes"
-    dec = chip_smoke.phase_decode_attention(CPU, 3, 8, 2, 16, 128, step=37,
+    # on the CPU the wrapper runs the plain version: neither kernel
+    for case in (fa, fa["ragged_float32"], fa["window_bfloat16"]):
+        assert case["launches"] == {"tensor_core": 0, "simt": 0}
+    win = fa["window_bfloat16"]
+    assert win["plain_ms"] > 0.0 and win["library_ms"] > 0.0
+    assert win["max_abs_err"] == 0.0 and win["bound_ms"] > 0.0
+    dec = chip_smoke.phase_decode_attention(CPU, 3, 8, 2, 16, path_s=64,
+                                            path_len=40, s=128, step=37,
                                             seed=5, reps=1)
-    assert dec["lengths"] == [128, 91, 54] and dec["max_abs_err"] == 0.0
+    # the path's shape at the top level, the long ragged cache beside it
+    assert dec["shape"] == [3, 8, 2, 64, 16] and dec["cache"] == 64
+    assert dec["lengths"] == [40, 40, 40] and dec["max_abs_err"] == 0.0
+    assert dec["splits"] == 1 and dec["library_ms"] > 0.0
+    assert dec["call_ms"] > 0.0 and dec["plain_ms"] > 0.0
+    long = dec["long_cache"]
+    assert long["lengths"] == [128, 91, 54] and long["max_abs_err"] == 0.0
+    assert long["float32"]["max_abs_err"] == 0.0 and long["splits"] == 1
+    assert long["bound_ms"] > dec["bound_ms"] > 0.0
     launches = {"gbdt_logits": 2, "gbdt_grid_logits": 5,
                 "flash_attention": 40, "decode_attention": 640}
     line = chip_smoke.kernel_line(
@@ -62,5 +80,26 @@ def test_lm_phases_on_cpu():
     assert serve["generate"]["tail_steps"] == 8
     assert serve["generate"]["tail_ms_per_step"] > 0.0
     # on the CPU the wrappers run their plain versions: no launches
-    assert serve["generate"]["launches"] == {"flash_attention": 0,
-                                             "decode_attention": 0}
+    none = {"flash_attention": 0, "flash_attention_tc": 0,
+            "decode_attention": 0}
+    assert serve["prefill"]["launches"] == none
+    assert serve["generate"]["launches"] == none
+    assert cons["launches"] == none
+
+
+def test_tensor_core_instruction_counts():
+    """``phase_build``'s count of tensor-core instructions in a SASS
+    listing, by opcode; None where the toolkit has no ``cuobjdump``."""
+    sass = ("        /*0a50*/   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], "
+            "RZ, !UPT ;\n"
+            "        /*0a60*/   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;\n"
+            "        /*0a70*/   HGMMA.64x64x16.F32.BF16 R24, R88, "
+            "gdesc[UR8], R24 ;\n"
+            "        /*0a80*/   FFMA R1, R2, R3, R1 ;\n")
+    assert chip_smoke.tensor_core_counts(sass) == {"HGMMA": 2, "HMMA": 1}
+    assert chip_smoke.tensor_core_counts("FFMA R1, R2, R3, R1 ;") == \
+        {"HGMMA": 0, "HMMA": 0}
+    if shutil.which("cuobjdump") is None and not os.path.exists(
+            "/usr/local/cuda/bin/cuobjdump"):
+        assert chip_smoke.sass_tensor_core_counts(
+            chip_smoke.ROOT / "chip_smoke.py") is None

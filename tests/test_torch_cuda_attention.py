@@ -7,8 +7,12 @@ tolerances; bfloat16 also within 2e-2 of each output row's largest
 value, since a row that averages many keys has values about as small as
 the absolute tolerance) over head dims 16, 64, 80, 128 and 256, ragged lengths, GQA
 ratios 1, 4 and 8 and the three mask kinds, and each test asserts that
-the kernel launched (its counter moved). This file imports only the
-port, NumPy and torch, so it runs on a machine without JAX::
+the kernel launched (its counter moved). Flash attention's two kernels
+are told apart by ``launches["flash_attention_tc"]`` (the tensor-core
+kernel); decode attention's cache splits are checked at their
+boundaries, for determinism, and under CUDA-graph capture. This file
+imports only the port, NumPy and torch, so it runs on a machine without
+JAX::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_attention.py
 """
@@ -107,6 +111,58 @@ def test_flash_attention_reads_strided_views(dev):
     _assert_close(got, want)
 
 
+@pytest.mark.parametrize("dtype,d,tc", [
+    (torch.bfloat16, 16, True), (torch.bfloat16, 64, True),
+    (torch.bfloat16, 80, True), (torch.bfloat16, 128, True),
+    (torch.bfloat16, 256, True),
+    (torch.float32, 64, False),        # TF32 cannot hold 2e-5
+    (torch.bfloat16, 24, False),       # not a multiple of 16
+])
+def test_flash_attention_dispatch(dev, dtype, d, tc):
+    """bfloat16 with D a multiple of 16 takes the tensor-core kernel;
+    float32 and other head dims take the SIMT kernel."""
+    q, k, v = _normal(dev, d, dtype, (2, 8, 150, d), (2, 2, 150, d),
+                      (2, 2, 150, d))
+    assert fa_kernel.takes_tensor_cores(q, k, v) == tc
+    before = dict(fa_kernel.launches)
+    got = fa_kernel.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize(dev)
+    assert fa_kernel.launches["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert fa_kernel.launches["flash_attention_tc"] == \
+        before["flash_attention_tc"] + int(tc)
+    _assert_close(got, flash_attention_ref(q, k, v, causal=True,
+                                           scale=float(d) ** -0.5))
+
+
+def test_flash_attention_tensor_cores_take_misaligned_views_to_simt(dev):
+    """A view whose base breaks 16-byte alignment goes to the SIMT
+    kernel, by the one rule, and still agrees with the plain version."""
+    q, k, v = _normal(dev, 3, torch.bfloat16, (1, 4, 64, 65),
+                      (1, 2, 64, 65), (1, 2, 64, 65))
+    q, k, v = (t[..., 1:] for t in (q, k, v))   # D 64, odd strides
+    assert not fa_kernel.takes_tensor_cores(q, k, v)
+    before = fa_kernel.launches["flash_attention_tc"]
+    got = fa_kernel.flash_attention(q, k, v, causal=True)
+    assert fa_kernel.launches["flash_attention_tc"] == before
+    _assert_close(got, flash_attention_ref(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("window", [0, 512])
+def test_flash_attention_tensor_cores_at_scale(dev, window):
+    """Granite's prefill length: 32 key tiles wrap the 2-stage ring many
+    times, and the diagonal / window-edge tiles take the masked path
+    while the interior ones do not."""
+    q, k, v = _normal(dev, 21 + window, torch.bfloat16, (1, 8, 2048, 64),
+                      (1, 2, 2048, 64), (1, 2, 2048, 64))
+    before = fa_kernel.launches["flash_attention_tc"]
+    got = fa_kernel.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize(dev)
+    assert fa_kernel.launches["flash_attention_tc"] == before + 1
+    _assert_close(got, flash_attention_ref(q, k, v, causal=True,
+                                           window=window))
+
+
 # ----------------------------------------------------------- decode attention
 @pytest.mark.parametrize("hq,hkv", GQA + [(24, 2)])   # 12: two group tiles
 @pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
@@ -156,6 +212,72 @@ def test_decode_attention_ignores_positions_past_length(dev):
     assert torch.equal(base, pert)
 
 
+def _splits(dev, b, hq, hkv, s):
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = dec_kernel.decode_splits(b, hkv, hq // hkv, s, sms)
+    return n, -(-s // n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_split_boundaries(dev, dtype):
+    """Lengths on a split boundary and one either side of it, length 1
+    and length S, with S not a multiple of the split length."""
+    b, hq, hkv, s, d = 7, 8, 2, 1000, 64
+    n, split = _splits(dev, b, hq, hkv, s)
+    assert n > 1 and s % split != 0
+    lengths = torch.tensor([split - 1, split, split + 1, 1, s,
+                            2 * split + 1, (n - 1) * split],
+                           dtype=torch.int32, device=dev)
+    q, k, v = _normal(dev, 31, dtype, (b, hq, d), (b, hkv, s, d),
+                      (b, hkv, s, d))
+    got = dec_kernel.decode_attention(q, k, v, lengths=lengths)
+    _assert_close(got, decode_attention_ref(q, k, v, lengths=lengths))
+
+
+def test_decode_attention_most_splits(dev):
+    """S 8192 at B 1, Hkv 1: the most splits (one block per split)."""
+    q, k, v = _normal(dev, 32, torch.bfloat16, (1, 4, 64), (1, 1, 8192, 64),
+                      (1, 1, 8192, 64))
+    n, _ = _splits(dev, 1, 4, 1, 8192)
+    assert n == 8192 // dec_kernel.MIN_SPLIT
+    for length in (8192, 5001):
+        lengths = torch.tensor([length], dtype=torch.int32, device=dev)
+        got = dec_kernel.decode_attention(q, k, v, lengths=lengths)
+        _assert_close(got, decode_attention_ref(q, k, v, lengths=lengths))
+
+
+def test_decode_attention_is_deterministic(dev):
+    q, k, v = _normal(dev, 33, torch.bfloat16, (8, 32, 64),
+                      (8, 8, 1024, 64), (8, 8, 1024, 64))
+    lengths = torch.full((8,), 700, dtype=torch.int32, device=dev)
+    first = dec_kernel.decode_attention(q, k, v, lengths=lengths)
+    second = dec_kernel.decode_attention(q, k, v, lengths=lengths)
+    assert torch.equal(first, second)
+
+
+def test_decode_attention_in_a_cuda_graph(dev):
+    """Captured once, replayed after ``lengths`` changes in place: equal
+    to a fresh call, so the wrapper reads no device value on the host."""
+    q, k, v = _normal(dev, 34, torch.bfloat16, (4, 8, 64), (4, 2, 1024, 64),
+                      (4, 2, 1024, 64))
+    lengths = torch.tensor([1024, 3, 500, 129], dtype=torch.int32,
+                           device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):      # warm-up off the default stream
+        dec_kernel.decode_attention(q, k, v, lengths=lengths)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dec_kernel.decode_attention(q, k, v, lengths=lengths)
+    lengths.copy_(torch.tensor([77, 1024, 1, 640], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    fresh = dec_kernel.decode_attention(q, k, v, lengths=lengths)
+    assert torch.equal(out, fresh)
+    _assert_close(out, decode_attention_ref(q, k, v, lengths=lengths))
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
     q = torch.zeros((1, 4, 8, 64), dtype=torch.float16, device=dev)
     with pytest.raises(ValueError, match="float32 or bfloat16"):
@@ -188,6 +310,7 @@ def test_serve_engine_on_cuda(dev):
     with torch.inference_mode():
         fwd, _ = model.forward({"tokens": tokens})
         assert fa_kernel.launches["flash_attention"] == cfg.n_layers
+        assert fa_kernel.launches["flash_attention_tc"] == 0   # float32
         cache = model.init_cache(2, 16, dtype=torch.float32)
         for t in range(12):
             lg, cache = model.decode_step(

@@ -18,6 +18,17 @@ from repro_torch.storage.soa import OP_FIELDS
 NAMES = sorted(ref_storage.WORKLOADS.keys())
 
 
+@pytest.fixture(autouse=True)
+def _restore_jax_x64():
+    """The reference's ``soa-jax`` turns on JAX's float64 mode for the
+    whole process; put the flag back after each test, so that the files
+    a test worker runs after this one see JAX's default."""
+    import jax
+    before = jax.config.jax_enable_x64
+    yield
+    jax.config.update("jax_enable_x64", before)
+
+
 def _fleet(pkg, backend, n=24, n_osts=4, seed=2, **kw):
     wls = [pkg.get_workload(NAMES[i % len(NAMES)]) for i in range(n)]
     return pkg.Simulation(wls, params=pkg.PFSParams(n_osts=n_osts),
