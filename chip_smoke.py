@@ -49,6 +49,10 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 H100_BF16_OPS_PER_S = 989e12
+# the H100 SXM's boost clock and SMs (data sheet); an SM's L1/shared
+# memory serves one 128-byte wavefront per clock
+H100_SM_CLOCK_HZ = 1.98e9
+H100_SMS = 132
 
 # every CUDA kernel of the port: its source and the Pallas kernel it
 # replaces (file:line of the kernel function)
@@ -241,11 +245,74 @@ def phase_build() -> Dict:
             "libraries": done}
 
 
+def _lines_per_warp_load(stride_bytes: int) -> float:
+    """128-byte lines one warp-wide 4-byte load touches when its 32 lanes
+    read 32 consecutive rows ``stride_bytes`` apart, averaged over the
+    word's offset in the row."""
+    offsets = range(0, stride_bytes, 4)
+    return sum(len({(r * stride_bytes + o) // 128 for r in range(32)})
+               for o in offsets) / len(offsets)
+
+
+def _issue_ms(wavefronts: float) -> float:
+    """Time the card's L1/shared memory takes to serve ``wavefronts``."""
+    return wavefronts / (H100_SMS * H100_SM_CLOCK_HZ) * 1e3
+
+
+def gbdt_logits_onchip(rows: int, features: int, trees: int,
+                       depth: int) -> Dict:
+    """On-chip loads ``gbdt_logits`` needs, counted from shapes in 128-byte
+    wavefronts, for the simple design (``*_simple``: a thread per row, so
+    a warp of 32 rows per tree: 2D broadcast model loads from shared
+    memory, D feature loads over the rows' lines, one leaf gather) and
+    this one (a warp of 64 rows per tree: D broadcast 8-byte splits, 2D
+    staged feature reads, 2 leaf gathers, all from shared memory); with
+    the longest chain of trees a warp walks (simple: a thread, all of
+    them) and the adds of a row's fold."""
+    from repro_torch.kernels.gbdt_infer.kernel import (logits_geometry,
+                                                       pairwise_plan)
+    lines = _lines_per_warp_load(features * 4)
+    simple = -(-rows // 32) * trees * (2 * depth + depth * lines + 1)
+    now = -(-rows // 64) * trees * (3 * depth + 2)
+    geo = logits_geometry(rows, features, trees, depth)
+    plan = pairwise_plan(trees)
+    warps = geo.threads // 32       # warp w walks chains w, w + warps, ..
+    counts = plan.chains[:, 1]
+    longest = max(int(counts[w::warps].sum()) for w in range(warps))
+    lengths = plan.blocks[:, 1]
+    folds = int(np.where(lengths < 8, 0, 7 + lengths % 8).sum()
+                + len(lengths) - 1)
+    return {"wavefronts_simple": simple, "wavefronts": now,
+            "issue_ms_simple": _issue_ms(simple), "issue_ms": _issue_ms(now),
+            "chain_trees_simple": trees, "chain_trees": longest,
+            "folds": folds}
+
+
+def gbdt_grid_onchip(clients: int, cands: int, trees: int) -> Dict:
+    """On-chip loads ``gbdt_grid_logits`` needs, in wavefronts, per warp
+    of 32 candidates, client and tree: the simple design's (``*_simple``:
+    a block per client, a thread per candidate) strided idx_theta load
+    (lanes one (C, T) row apart), the broadcast client half and a leaf
+    gather in one line; this design's transposed idx_theta read shared by
+    4 clients, a quarter of a 16-byte broadcast of the client halves and
+    the gather from shared memory (1/4 + 1/4 + 1)."""
+    warps = clients * -(-cands // 32) * trees
+    simple = warps * (_lines_per_warp_load(trees * 4) + 2)
+    now = warps * 1.5
+    return {"wavefronts_simple": simple, "wavefronts": now,
+            "issue_ms_simple": _issue_ms(simple),
+            "issue_ms": _issue_ms(now)}
+
+
 def phase_gbdt_logits(dev, model, n_rows: int, seed: int,
                       reps: int) -> Dict:
-    """``gbdt_logits`` against its plain version on ``n_rows`` seeded rows."""
+    """``gbdt_logits`` against its plain version on ``n_rows`` seeded rows.
+    A call's device time is below the wrapper's host cost, so the kernel
+    is timed by graph replay (``ms``), and an event-timed loop of wrapper
+    calls gives that host cost (``call_ms``)."""
     import torch
-    from repro_torch.kernels.gbdt_infer.kernel import gbdt_logits
+    from repro_torch.kernels.gbdt_infer.kernel import (gbdt_logits,
+                                                       logits_geometry)
     from repro_torch.kernels.gbdt_infer.ops import pack_gbdt
     from repro_torch.kernels.gbdt_infer.ref import gbdt_logits_ref
     packed = pack_gbdt(model, dev)
@@ -263,24 +330,33 @@ def phase_gbdt_logits(dev, model, n_rows: int, seed: int,
     t, d = model.n_trees, model.depth
     b = bound(n_rows * model.n_features * 4 + t * d * 8 + (t << d) * 4
               + n_rows * 4, n_rows * t * (d + 1))
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    geo = logits_geometry(n_rows, model.n_features, t, d, sms)
     return {"phase": "gbdt_logits", "rows": n_rows,
             "features": model.n_features, "trees": t, "depth": d,
+            "blocks": geo.blocks, "threads": geo.threads,
+            "stage_model": geo.stage_model,
             "bit_identical": identical,
             "max_abs_err": float((got - plain).abs().max().item()),
             "rows_agree_numpy": rows_agree,
-            "ms": time_ms(lambda: gbdt_logits(*args), dev, reps),
+            "ms": graph_ms(lambda: gbdt_logits(*args), dev, reps),
+            "call_ms": time_ms(lambda: gbdt_logits(*args), dev, reps),
             "plain_ms": time_ms(lambda: gbdt_logits_ref(*args), dev,
                                 max(reps // 10, 1)),
+            "onchip": gbdt_logits_onchip(n_rows, model.n_features, t, d),
             **b}
 
 
 def phase_gbdt_grid_logits(dev, model, n_clients: int, seed: int,
                            reps: int) -> Dict:
     """``gbdt_grid_logits`` against its plain version: ``n_clients`` seeded
-    client rows x the 63-candidate RPC grid."""
+    client rows x the 63-candidate RPC grid; timed by graph replay
+    (``ms``), with the wrapper's host cost per call (``call_ms``)."""
     import torch
     from repro_torch.configs.carat_defaults import SPACES
-    from repro_torch.kernels.gbdt_infer.kernel import gbdt_grid_logits
+    from repro_torch.kernels.gbdt_infer.kernel import (gbdt_grid_logits,
+                                                       grid_geometry)
     from repro_torch.kernels.gbdt_infer.ops import GridGBDTScorer
     from repro_torch.kernels.gbdt_infer.ref import gbdt_grid_logits_ref
     sc = GridGBDTScorer(model, SPACES.theta_features(), device=dev)
@@ -295,13 +371,19 @@ def phase_gbdt_grid_logits(dev, model, n_clients: int, seed: int,
     t, d, c = model.n_trees, model.depth, sc.n_candidates
     b = bound(n_clients * sc.n_h * 4 + t * d * 8 + c * t * 4 + (t << d) * 4
               + n_clients * c * 4, n_clients * t * d + 2 * n_clients * c * t)
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else H100_SMS)
+    geo = grid_geometry(n_clients, c, t, d, sms)
     return {"phase": "gbdt_grid_logits", "clients": n_clients,
             "candidates": c, "trees": t, "depth": d,
+            "blocks": geo.blocks, "resident": geo.resident,
             "bit_identical": identical,
             "max_abs_err": float((got - plain).abs().max().item()),
-            "ms": time_ms(lambda: gbdt_grid_logits(*args), dev, reps),
+            "ms": graph_ms(lambda: gbdt_grid_logits(*args), dev, reps),
+            "call_ms": time_ms(lambda: gbdt_grid_logits(*args), dev, reps),
             "plain_ms": time_ms(lambda: gbdt_grid_logits_ref(*args), dev,
                                 max(reps // 10, 1)),
+            "onchip": gbdt_grid_onchip(n_clients, c, t),
             **b}
 
 
@@ -442,20 +524,28 @@ def _carat_sim(dev, models, n: int, seed: int, node_size: int,
     return sim, policy, timers
 
 
-def _device_busy_ms(fn: Callable[[], object], dev, top: int = 0):
+def _device_busy_ms(fn: Callable[[], object], dev, top: int = 0,
+                    kernels=()):
     """Device time of every kernel, copy and memset of a profiled call of
     ``fn`` (the device-side events of the profiler's CUPTI trace; the
     CPU ops that launched them carry the same time again and are left
-    out), or None where it records none; the call's wall seconds; and,
-    with ``top``, the ``top`` device-side entries with the most time
-    (name, device ms, count)."""
+    out), or None where it records none; the call's wall seconds; with
+    ``top``, the ``top`` device-side entries with the most time (name,
+    device ms, count); and for each name in ``kernels`` the device ms
+    and launches of the CUDA kernel ``<name>_kernel``."""
     t0 = time.perf_counter()
     with _profiler() as prof:
         fn()
         sync(dev)
     wall = time.perf_counter() - t0
     busy_ms, heaviest = _device_time(prof, top)
-    return busy_ms, wall, heaviest
+    by_kernel = {}
+    for name in kernels:
+        hits = [e for e in prof.key_averages()
+                if re.search(rf"\b{name}_kernel\b", e.key)]
+        by_kernel[name] = [sum(e.self_device_time_total for e in hits) / 1e3,
+                           sum(e.count for e in hits)]
+    return busy_ms, wall, heaviest, by_kernel
 
 
 def _profiler():
@@ -537,11 +627,19 @@ def phase_carat(dev, n: int, intervals: int, seed: int, node_size: int,
            "device_busy_share_traced": None}
     if dev.type == "cuda":
         traced, _, _ = _carat_sim(dev, models, n, seed, node_size, flip_at)
-        busy_ms, traced_wall, _ = _device_busy_ms(
-            lambda: traced.run(intervals * sim.interval_s), dev)
+        busy_ms, traced_wall, heaviest, gbdt = _device_busy_ms(
+            lambda: traced.run(intervals * sim.interval_s), dev, top=10,
+            kernels=("gbdt_logits", "gbdt_grid_logits"))
         if busy_ms is not None:
             out["device_busy_ms_per_interval"] = busy_ms / intervals
             out["device_busy_share_traced"] = busy_ms / 1e3 / traced_wall
+        out["heaviest_device_ms"] = heaviest
+        # the GBDT kernels in the traced run: device ms per interval and
+        # launches (the wrappers' counts were taken on the untraced run)
+        out["gbdt_device_ms_per_interval"] = {
+            name: ms / intervals for name, (ms, _) in gbdt.items()}
+        out["gbdt_traced_launches"] = {name: count
+                                       for name, (_, count) in gbdt.items()}
     return out
 
 
@@ -989,11 +1087,12 @@ def main() -> int:
     emit(phase_build())
 
     # CARAT's fleet-tuning loop
-    m_read, _ = default_models()
-    # the main path's shape (one bootstrap pick: 63 candidate rows), then
-    # the cross product of a 4096-client probe batch
+    m_read, m_write = default_models()
+    # the main path's shape (one bootstrap pick: 63 candidate rows) for
+    # both models, then the cross product of a 4096-client probe batch
     logits_small = phase_gbdt_logits(dev, m_read, 63, seed=1, reps=200)
     emit(logits_small)
+    emit(phase_gbdt_logits(dev, m_write, 63, seed=1, reps=200))
     emit(phase_gbdt_logits(dev, m_read, 4096 * 63, seed=2, reps=50))
     grid = phase_gbdt_grid_logits(dev, m_read, 4096, seed=3, reps=50)
     emit(grid)

@@ -21,8 +21,11 @@ def test_kernel_phases_on_cpu():
     small = chip_smoke.phase_gbdt_logits(CPU, model, 63, seed=1, reps=1)
     assert small["bit_identical"] and small["rows_agree_numpy"] == 63
     assert small["max_abs_err"] == 0.0
+    assert small["call_ms"] > 0.0 and small["plain_ms"] > 0.0
+    assert (small["blocks"], small["threads"]) == (1, 512)
     grid = chip_smoke.phase_gbdt_grid_logits(CPU, model, 32, seed=3, reps=1)
     assert grid["bit_identical"] and grid["candidates"] == 63
+    assert grid["call_ms"] > 0.0 and grid["resident"]
     fa = chip_smoke.phase_flash_attention(CPU, 1, 96, 4, 2, 16, window=8,
                                           ragged_s=50, seed=4, reps=1)
     assert fa["max_abs_err"] == 0.0 and fa["library_ms"] > 0.0
@@ -103,3 +106,28 @@ def test_tensor_core_instruction_counts():
             "/usr/local/cuda/bin/cuobjdump"):
         assert chip_smoke.sass_tensor_core_counts(
             chip_smoke.ROOT / "chip_smoke.py") is None
+
+
+def test_gbdt_onchip_load_counts():
+    """The on-chip loads each GBDT design needs, counted from shapes: at
+    the path's 63 rows of 184 trees the simple design (a thread per row)
+    walks one chain of 184 trees, the kernel 16 chains of at most 12 on
+    16 warps; at fleet size the kernel needs several times fewer
+    wavefronts."""
+    # rows 88 bytes apart: a warp's 32 rows span 22 lines; 4 bytes
+    # apart, one line
+    assert chip_smoke._lines_per_warp_load(88) == 22.0
+    assert chip_smoke._lines_per_warp_load(4) == 1.0
+    small = chip_smoke.gbdt_logits_onchip(63, 22, 184, 5)
+    assert (small["chain_trees_simple"], small["chain_trees"]) == (184, 12)
+    assert small["folds"] == 15
+    assert small["wavefronts"] == 184 * 17
+    fleet = chip_smoke.gbdt_logits_onchip(258_048, 22, 184, 5)
+    assert fleet["wavefronts"] == 4032 * 184 * 17
+    assert fleet["wavefronts_simple"] > 5 * fleet["wavefronts"]
+    assert fleet["issue_ms"] == chip_smoke._issue_ms(fleet["wavefronts"])
+    grid = chip_smoke.gbdt_grid_onchip(4096, 63, 184)
+    assert grid["wavefronts"] == 4096 * 2 * 184 * 1.5
+    assert grid["wavefronts_simple"] == 4096 * 2 * 184 * 34
+    write = chip_smoke.gbdt_logits_onchip(63, 22, 223, 5)
+    assert write["chain_trees"] == 14

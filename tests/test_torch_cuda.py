@@ -8,6 +8,8 @@ machine without JAX::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -42,6 +44,7 @@ def _rows(seed, n, f, scale=1.0):
     return (rng.normal(size=(n, f)) * scale).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=None)
 def _random_model(n_trees, seed, depth=5, n_features=22):
     """A random oblivious ensemble: exercises tree counts past the trained
     ones (400 trees need dynamic shared memory above 48 KB)."""
@@ -144,3 +147,160 @@ def test_carat_on_cuda_makes_the_host_decisions(dev):
     assert host_launches["gbdt_grid_logits"] == 0
     assert dev_launches["gbdt_grid_logits"] > 0
     assert any(host_dec) and dev_dec == host_dec
+
+
+# ------------------------------------------ the pairwise plan's boundaries
+TREE_COUNTS = [1, 7, 8, 9, 127, 128, 129, 184, 223, 400, 1000]
+ROW_COUNTS = [1, 31, 32, 33, 63, 64, 4096]
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.uint32)
+
+
+def _check_logits(dev, model, X):
+    """``gbdt_logits`` on ``X``: one launch, equal to the plain version on
+    the card and to ``decision_function`` bit for bit."""
+    packed = pack_gbdt(model, dev)
+    x = torch.from_numpy(X).to(dev)
+    args = (x, packed.feat, packed.thr, packed.leaf, packed.base)
+    before = kernel.launches["gbdt_logits"]
+    got = kernel.gbdt_logits(*args)
+    torch.cuda.synchronize(dev)
+    assert kernel.launches["gbdt_logits"] == before + 1
+    assert torch.equal(got, gbdt_logits_ref(*args))
+    assert np.array_equal(_bits(got.cpu().numpy()),
+                          _bits(model.decision_function(X)))
+
+
+def _check_grid(dev, model, H, theta=THETA):
+    """``gbdt_grid_logits`` through ``GridGBDTScorer``: one launch, equal
+    to the CPU scorer's probabilities and, on the card, to the plain
+    version's logits."""
+    sc = GridGBDTScorer(model, theta, device=dev)
+    before = kernel.launches["gbdt_grid_logits"]
+    got = sc(H)
+    assert kernel.launches["gbdt_grid_logits"] == before + 1
+    assert np.array_equal(got, GridGBDTScorer(model, theta, "cpu")(H))
+    args = (torch.from_numpy(H).to(dev), sc.cfeat, sc.thr, sc.idx_theta,
+            sc.leaf_flat)
+    assert torch.equal(gbdt_grid_logits(*args), gbdt_grid_logits_ref(*args))
+
+
+@pytest.mark.parametrize("trees", TREE_COUNTS)
+@pytest.mark.parametrize("n", ROW_COUNTS)
+def test_logits_kernel_at_pairwise_boundaries(dev, trees, n):
+    """Tree counts on each side of the plan's boundaries (8 accumulators,
+    a 128-tree leaf block, a split) over row counts on each side of a
+    warp and of a block's 64-row tile."""
+    model = _random_model(trees, trees)
+    _check_logits(dev, model, _rows(n + trees, n, model.n_features))
+
+
+@pytest.mark.parametrize("which", ["read", "write"])
+def test_logits_kernel_at_fleet_size(dev, which):
+    """258,048 rows: the cross product of a 4096-client probe batch."""
+    model = _models()[which]
+    _check_logits(dev, model, _rows(5, 4096 * 63, model.n_features))
+
+
+def test_logits_kernel_deep_trees_and_wide_rows(dev):
+    """Depth 12 and 16 (leaves far past one line; at 184 trees of depth
+    12 the model is read through L1), and rows too wide for the staged
+    tile (read through L1)."""
+    _check_logits(dev, _random_model(9, 3, depth=12),
+                  _rows(6, 100, 22))
+    _check_logits(dev, _random_model(3, 4, depth=16),
+                  _rows(7, 70, 22))
+    assert not kernel.logits_geometry(300, 22, 184, 12).stage_model
+    _check_logits(dev, _random_model(184, 6, depth=12),
+                  _rows(8, 300, 22))
+    wide = _random_model(130, 5, n_features=2000)
+    assert not kernel.logits_geometry(100, 2000, 130, 5).stage_x
+    _check_logits(dev, wide, _rows(8, 100, 2000))
+
+
+def _with_specials(X, seed):
+    """``X`` with NaN, +inf and -inf in seeded places, and a row of each."""
+    rng = np.random.Generator(np.random.PCG64(seed))
+    X = X.copy()
+    mask = rng.random(X.shape)
+    X[mask < 0.05] = np.nan
+    X[(mask >= 0.05) & (mask < 0.1)] = np.inf
+    X[(mask >= 0.1) & (mask < 0.15)] = -np.inf
+    X[0], X[1], X[2] = np.nan, np.inf, -np.inf
+    return X
+
+
+@pytest.mark.parametrize("which", ["read", "write", "t1000"])
+def test_kernels_take_nan_and_inf_features(dev, which):
+    model = _models()[which]
+    _check_logits(dev, model, _with_specials(_rows(9, 200, 22), 10))
+    H = _with_specials(_rows(11, 150, model.n_features - THETA.shape[1]), 12)
+    _check_grid(dev, model, H)
+
+
+@pytest.mark.parametrize("trees", TREE_COUNTS)
+def test_grid_kernel_at_pairwise_boundaries(dev, trees):
+    """1, 300 and 4096 clients, and more clients than the persistent
+    grid's blocks take in one pass each."""
+    model = _random_model(trees, trees)
+    n_h = model.n_features - THETA.shape[1]
+    geo = kernel.grid_geometry(1 << 20, len(THETA), trees, model.depth,
+                               torch.cuda.get_device_properties(
+                                   dev).multi_processor_count)
+    many = 2 * geo.blocks * geo.clients_per_pass + 5
+    for n in (1, 300, 4096, many):
+        _check_grid(dev, model, _rows(n + trees, n, n_h, scale=0.5))
+
+
+def test_grid_kernel_candidate_chunks_and_deep_trees(dev):
+    """300 candidates (two chunks of 256, the model staged a leaf block at
+    a time) and depth 16 (leaves gathered through L1)."""
+    rng = np.random.Generator(np.random.PCG64(13))
+    theta = rng.normal(size=(300, THETA.shape[1])).astype(np.float32)
+    model = _random_model(223, 14)
+    n_h = model.n_features - THETA.shape[1]
+    assert not kernel.grid_geometry(70, 300, 223, 5).resident
+    _check_grid(dev, model, _rows(15, 70, n_h, scale=0.5), theta)
+    deep = _random_model(5, 16, depth=16)
+    assert not kernel.grid_geometry(40, 63, 5, 16).stage_leaves
+    _check_grid(dev, deep, _rows(17, 40, n_h, scale=0.5))
+
+
+def test_kernels_in_a_cuda_graph(dev):
+    """Both kernels captured once and replayed after their inputs change
+    in place: the new answers, so the wrappers read no device value on
+    the host."""
+    r, w = default_models()
+    packed = pack_gbdt(w, dev)
+    sc = GridGBDTScorer(r, THETA, device=dev)
+    X0, X1 = _rows(18, 63, w.n_features), _rows(19, 63, w.n_features)
+    H0, H1 = (_rows(20, 4096, sc.n_h, 0.5), _rows(21, 4096, sc.n_h, 0.5))
+    x, h = torch.from_numpy(X0).to(dev), torch.from_numpy(H0).to(dev)
+    grid_args = (h, sc.cfeat, sc.thr, sc.idx_theta, sc.leaf_flat)
+
+    def both():
+        return (kernel.gbdt_logits(x, packed.feat, packed.thr, packed.leaf,
+                                   packed.base),
+                gbdt_grid_logits(*grid_args))
+
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):      # warm-up off the default stream
+        both()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    before = dict(kernel.launches)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        logits, grid = both()
+    assert kernel.launches["gbdt_logits"] == before["gbdt_logits"] + 1
+    assert (kernel.launches["gbdt_grid_logits"]
+            == before["gbdt_grid_logits"] + 1)
+    x.copy_(torch.from_numpy(X1))
+    h.copy_(torch.from_numpy(H1))
+    graph.replay()
+    torch.cuda.synchronize(dev)
+    assert np.array_equal(_bits(logits.cpu().numpy()),
+                          _bits(w.decision_function(X1)))
+    assert torch.equal(grid, gbdt_grid_logits_ref(*grid_args))
