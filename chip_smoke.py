@@ -11,6 +11,13 @@ paths:
   against the host ``soa`` core, then ``CaratPolicy`` over a fleet of
   4096 clients, every probe batch through the GBDT kernels and
   bit-identical to the plain version;
+* CARAT's multi-client deployment: a synthesized 4096-client trace
+  replayed on the card against host ``soa``; the 100k-client fleet
+  under the sync ``ShardedRuntime`` (4 shards through
+  ``ShardedDeviceFleet``) against the single-device fleet; and the
+  4096-client CARAT loop under the sharded runtime's bus, bit-identical
+  to ``Simulation.run`` on host ``soa`` with both GBDT kernels
+  launched, then with the fleet on the card;
 * the LM serving path at granite-3-2b's full width and depth: the
   forward against token-by-token decode in float32 (the attention
   kernels on every layer), then a bfloat16 prefill of 4 x 2048 tokens
@@ -18,7 +25,9 @@ paths:
 
 Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
-launches and times, and the last line is ``{"ok": true, "device": {...}}``.
+launches (the GBDT kernels': the ``carat`` run's plus both sharded
+CARAT runs') and times, and the last line is
+``{"ok": true, "device": {...}}``.
 
 Usage (one CUDA device; imports nothing of JAX or of ``repro``)::
 
@@ -29,6 +38,7 @@ prints no result.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
@@ -492,16 +502,17 @@ class _Recorder(_Timed):
 
 
 def _carat_sim(dev, models, n: int, seed: int, node_size: int,
-               flip_at: float):
-    """The CARAT scenario, with timers around the fleet step, the host
-    syncs, the policy step and both scorers."""
+               flip_at: float, backend: str = "soa-torch"):
+    """The CARAT scenario (the policy scoring on ``dev``, the fleet on
+    ``backend``), with timers around the policy step, both scorers and,
+    on ``soa-torch``, the fleet step and the host syncs."""
     from repro_torch.config import CaratConfig
     from repro_torch.configs.carat_defaults import SPACES
     from repro_torch.core.policies.carat import CaratPolicy
     from repro_torch.storage import SchedulePolicy, Simulation, get_workload
     names = [WL_CYCLE[i % len(WL_CYCLE)] for i in range(n)]
     sim = Simulation([get_workload(nm) for nm in names], seed=seed,
-                     backend="soa-torch", device=dev,
+                     backend=backend, device=dev,
                      topology=[i // node_size for i in range(n)])
     sim.attach_policy(SchedulePolicy({
         c.client_id: _Flip(get_workload(nm), get_workload(OP_FLIP[nm]),
@@ -517,10 +528,11 @@ def _carat_sim(dev, models, n: int, seed: int, node_size: int,
         timers[f"bootstrap_scorer_{op}"] = policy.tuner.models[op] = \
             _Timed(policy.tuner.models[op])
     sim.attach_policy(policy)
-    fleet = sim.device_fleet
     timers["policy_step"] = policy.step = _Timed(policy.step)
-    timers["fleet_step"] = fleet.step = _Timed(fleet.step)
-    timers["host_sync"] = fleet.sync_host = _Timed(fleet.sync_host)
+    fleet = sim.device_fleet
+    if fleet is not None:
+        timers["fleet_step"] = fleet.step = _Timed(fleet.step)
+        timers["host_sync"] = fleet.sync_host = _Timed(fleet.sync_host)
     return sim, policy, timers
 
 
@@ -567,29 +579,11 @@ def _device_time(prof, top: int = 0):
     return (busy_us / 1e3 if busy_us > 0 else None), heaviest
 
 
-def phase_carat(dev, n: int, intervals: int, seed: int, node_size: int,
-                flip_at: float) -> Dict:
-    """The main path: ``CaratPolicy`` with the committed production models
-    over a ``soa-torch`` fleet of ``n`` clients in nodes of ``node_size``.
-    Launch counters are zeroed just before the run and read just after;
-    every scored probe batch is then re-scored by the plain version on a
-    CPU copy of the scorer and must be bit-identical. A second, profiled
-    run of the same scenario gives the device's busy time."""
+def _check_probe_batches(models, timers) -> int:
+    """Re-score every probe batch the recorders kept with the plain
+    version on a CPU copy of the scorer; all must be bit-identical."""
     from repro_torch.configs.carat_defaults import SPACES
-    from repro_torch.core.ml.gbdt import default_models
-    from repro_torch.kernels.gbdt_infer import kernel
     from repro_torch.kernels.gbdt_infer.ops import GridGBDTScorer
-    m_read, m_write = default_models()
-    models = {"read": m_read, "write": m_write}
-    sim, policy, timers = _carat_sim(dev, models, n, seed, node_size,
-                                     flip_at)
-    kernel.reset_launches()
-    t0 = time.perf_counter()
-    sim.run(intervals * sim.interval_s)
-    sync(dev)
-    wall = time.perf_counter() - t0
-    launches = dict(kernel.launches)
-
     theta = SPACES.theta_features()
     batches = 0
     for op in models:
@@ -600,23 +594,73 @@ def phase_carat(dev, n: int, intervals: int, seed: int, node_size: int,
                  f"the plain version")
             batches += 1
     gate(batches > 0, "no probe batch was scored")
+    return batches
+
+
+def _actuation_kinds(policy) -> Dict[str, int]:
+    kinds: Dict[str, int] = {}
+    for ctrl in policy.controllers:
+        for d in ctrl.decisions:
+            k = d[1] if d[1] in ("reprobe", "bootstrap") else "tuned"
+            kinds[k] = kinds.get(k, 0) + 1
+    return kinds
+
+
+def _signature(sim, policy, res) -> tuple:
+    """What a CARAT run decided and moved: cache limits, decisions, the
+    throughput series and the bytes."""
+    return ([c.config.dirty_cache_mb for c in sim.clients],
+            policy.decisions, res.client_throughput,
+            res.app_read_bytes, res.app_write_bytes)
+
+
+def _digest(signature: tuple) -> str:
+    return hashlib.sha256(repr(signature).encode()).hexdigest()[:16]
+
+
+def _max_rel(got, want) -> float:
+    got, want = np.asarray(got, float), np.asarray(want, float)
+    rel = np.abs(got - want) / np.maximum(np.abs(want), 1e-300)
+    return float(np.max(rel, initial=0.0))
+
+
+def phase_carat(dev, n: int, intervals: int, seed: int, node_size: int,
+                flip_at: float) -> Dict:
+    """The main path: ``CaratPolicy`` with the committed production models
+    over a ``soa-torch`` fleet of ``n`` clients in nodes of ``node_size``.
+    Launch counters are zeroed just before the run and read just after;
+    every scored probe batch is then re-scored by the plain version on a
+    CPU copy of the scorer and must be bit-identical. A second, profiled
+    run of the same scenario gives the device's busy time."""
+    from repro_torch.core.ml.gbdt import default_models
+    from repro_torch.kernels.gbdt_infer import kernel
+    m_read, m_write = default_models()
+    models = {"read": m_read, "write": m_write}
+    sim, policy, timers = _carat_sim(dev, models, n, seed, node_size,
+                                     flip_at)
+    kernel.reset_launches()
+    t0 = time.perf_counter()
+    res = sim.run(intervals * sim.interval_s)
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernel.launches)
+
+    batches = _check_probe_batches(models, timers)
     if dev.type == "cuda":
         # (on the CPU the wrappers run their plain versions: no launches)
         gate(launches["gbdt_grid_logits"] == batches,
              "a probe batch was scored outside gbdt_grid_logits")
         gate(launches["gbdt_logits"] > 0, "gbdt_logits never ran")
     gate(policy.decision_count > 0, "no CARAT decisions were made")
-    kinds: Dict[str, int] = {}
-    for ctrl in policy.controllers:
-        for d in ctrl.decisions:
-            k = d[1] if d[1] in ("reprobe", "bootstrap") else "tuned"
-            kinds[k] = kinds.get(k, 0) + 1
+    kinds = _actuation_kinds(policy)
     scorer_s = sum(t.seconds for name, t in timers.items()
                    if name.startswith("grid_scorer"))
     out = {"phase": "carat", "clients": n, "node_size": node_size,
            "intervals": intervals, "flip_at_s": flip_at,
            "decision_count": policy.decision_count,
-           "actuations": kinds, "probe_batches": batches,
+           "actuations": kinds,
+           "signature": _digest(_signature(sim, policy, res)),
+           "probe_batches": batches,
            "batches_bit_identical": True, "launches": launches,
            "ms_per_interval": wall * 1e3 / intervals,
            "scorer_share": scorer_s / wall,
@@ -640,6 +684,208 @@ def phase_carat(dev, n: int, intervals: int, seed: int, node_size: int,
             name: ms / intervals for name, (ms, _) in gbdt.items()}
         out["gbdt_traced_launches"] = {name: count
                                        for name, (_, count) in gbdt.items()}
+    return out
+
+
+def phase_replay(dev, n: int, node_size: int, intervals: int,
+                 seed: int) -> Dict:
+    """Trace replay on ``dev``: a synthesized ``n``-client trace in nodes
+    of ``node_size`` through ``simulation_from_trace`` on ``soa-torch``,
+    held against the same trace on the host ``soa`` core (cumulative
+    read and write bytes within ``rtol=1e-9``)."""
+    from repro_torch.storage import simulation_from_trace, synthesize_trace
+    t0 = time.perf_counter()
+    trace = synthesize_trace(seed, n_clients=n, duration_s=20.0)
+    synth_s = time.perf_counter() - t0
+    topology = [i // node_size for i in range(len(trace.records))]
+    duration = intervals * 0.5
+    ms, res = {}, {}
+    counts = {"switches": 0, "statics_uploads": 0}
+    for backend in ("soa", "soa-torch"):
+        t0 = time.perf_counter()
+        sim, schedules = simulation_from_trace(
+            trace, backend=backend, device=dev, topology=topology)
+        build_s = time.perf_counter() - t0
+        if backend == "soa-torch":
+            core, fleet = sim.core, sim.device_fleet
+            set_workload, refresh = core.set_workload, fleet._refresh_statics
+
+            def counted_set_workload(i, spec):
+                counts["switches"] += 1
+                set_workload(i, spec)
+
+            def counted_refresh():
+                seen = fleet._static_seen
+                refresh()
+                counts["statics_uploads"] += fleet._static_seen != seen
+
+            core.set_workload = counted_set_workload
+            fleet._refresh_statics = counted_refresh
+        t0 = time.perf_counter()
+        res[backend] = sim.run(duration)
+        sync(dev)
+        ms[backend] = (time.perf_counter() - t0) * 1e3 / intervals
+    rtol = 1e-9
+    for op in ("read", "write"):
+        np.testing.assert_allclose(
+            getattr(res["soa-torch"], f"app_{op}_bytes"),
+            getattr(res["soa"], f"app_{op}_bytes"), rtol=rtol,
+            err_msg=f"replayed app_{op}_bytes")
+    gate(counts["switches"] > 0, "no workload switch fired")
+    return {"phase": "replay", "clients": len(trace.records),
+            "records": trace.n_records, "schedules": len(schedules),
+            "node_size": node_size, "intervals": intervals, "rtol": rtol,
+            "within_rtol": True,
+            "max_rel_bytes": max(
+                _max_rel(getattr(res["soa-torch"], f), getattr(res["soa"], f))
+                for f in ("app_read_bytes", "app_write_bytes")),
+            "synthesize_s": synth_s, "build_s_device": build_s,
+            "host_soa_ms_per_interval": ms["soa"],
+            "device_ms_per_interval": ms["soa-torch"],
+            "workload_switches": counts["switches"],
+            "statics_uploads": counts["statics_uploads"]}
+
+
+def phase_sharded_fleet(dev, n: int, intervals: int, seed: int,
+                        node_size: int, n_shards: int) -> Dict:
+    """``ShardedRuntime(mode="sync")`` over a ``soa-torch`` fleet of ``n``
+    clients in nodes of ``node_size`` (the ``fleet`` phase's striped mix)
+    steps through ``ShardedDeviceFleet`` on ``dev`` and agrees with the
+    single-device fleet within ``rtol=1e-9`` (shards sharing the card
+    step as one block: ``max_rel`` 0). Each run takes one warm-up
+    interval, then ``intervals`` timed ones through its entry point."""
+    from repro_torch.core.runtime.sharded import ShardedRuntime
+    from repro_torch.storage import Simulation, get_workload
+    from repro_torch.storage.device import ShardedDeviceFleet
+    wls = [get_workload(STRIPED_CYCLE[i % len(STRIPED_CYCLE)])
+           for i in range(n)]
+    topology = [i // node_size for i in range(n)]
+    single = Simulation(wls, seed=seed, device=dev, topology=topology)
+    sharded = Simulation(wls, seed=seed, device=dev, topology=topology)
+    t0 = time.perf_counter()
+    rt = ShardedRuntime(sharded, mode="sync", n_shards=n_shards)
+    build_s = time.perf_counter() - t0
+    fleet = rt.device_fleet
+    gate(isinstance(fleet, ShardedDeviceFleet),
+         "the sharded runtime did not step through ShardedDeviceFleet")
+    gate(all(d.type == dev.type for d in fleet.shard_devices)
+         and fleet.device.type == dev.type,
+         f"shards not on {dev.type}: {fleet.shard_devices}")
+    dt = single.interval_s
+    ms = {}
+    for name, run in (("single_device", single.run), ("sharded", rt.run)):
+        run(dt)
+        sync(dev)
+        t0 = time.perf_counter()
+        run(intervals * dt)
+        sync(dev)
+        ms[name] = (time.perf_counter() - t0) * 1e3 / intervals
+    gate(all(st["dirty"].device.type == dev.type for st in fleet._states),
+         "a shard's state left the device")
+    rtol = 1e-9
+    worst = fleet_max_rel(single, sharded, rtol)
+    return {"phase": "sharded_fleet", "clients": n, "node_size": node_size,
+            "shards": len(rt.shards), "intervals": intervals,
+            "shard_devices": [str(d) for d in fleet.shard_devices],
+            "primary": str(fleet.device), "blocks": len(fleet.blocks),
+            "shard_clients": [len(sh.clients) for sh in rt.shards],
+            "rtol": rtol, "within_rtol": True, "max_rel": worst,
+            "runtime_build_s": build_s,
+            "single_device_ms_per_interval": ms["single_device"],
+            "sharded_ms_per_interval": ms["sharded"]}
+
+
+def phase_sharded_carat(dev, n: int, intervals: int, seed: int,
+                        node_size: int, flip_at: float, n_shards: int,
+                        carat: Optional[Dict] = None) -> Dict:
+    """The ``carat`` scenario under ``ShardedRuntime(mode="sync")``, the
+    policy scoring on ``dev``. On the host ``soa`` core the sharded run
+    (b) must be bit-identical to ``Simulation.run`` (a): decisions,
+    cache limits, throughput series, bytes; and both GBDT kernels must
+    launch during (b). Then (c) runs the same scenario with the fleet on
+    ``dev`` (``soa-torch``); where its shards share one device they step
+    as one block, and (c) must then make the ``carat`` phase's decisions
+    bit for bit (its ``signature``). Every probe batch of (b) and (c)
+    must equal the plain version; the launch counters are zeroed just
+    before each sharded run and read just after."""
+    from repro_torch.core.ml.gbdt import default_models
+    from repro_torch.core.runtime.sharded import ShardedRuntime
+    from repro_torch.kernels.gbdt_infer import kernel
+    from repro_torch.storage.device import ShardedDeviceFleet
+    m_read, m_write = default_models()
+    models = {"read": m_read, "write": m_write}
+    duration = intervals * 0.5
+    out: Dict = {"phase": "sharded_carat", "clients": n,
+                 "node_size": node_size, "shards": n_shards,
+                 "intervals": intervals, "flip_at_s": flip_at}
+
+    sim_a, pol_a, _ = _carat_sim(dev, models, n, seed, node_size, flip_at,
+                                 backend="soa")
+    t0 = time.perf_counter()
+    res_a = sim_a.run(duration)
+    sync(dev)
+    out["soa_single_ms_per_interval"] = \
+        (time.perf_counter() - t0) * 1e3 / intervals
+    sigs = {"a": _signature(sim_a, pol_a, res_a)}
+    for key, backend in (("b", "soa"), ("c", "soa-torch")):
+        sim, policy, timers = _carat_sim(dev, models, n, seed, node_size,
+                                         flip_at, backend=backend)
+        rt = ShardedRuntime(sim, mode="sync", n_shards=n_shards)
+        if backend == "soa-torch":
+            gate(isinstance(rt.device_fleet, ShardedDeviceFleet),
+                 "the soa-torch CARAT run did not step on the device")
+            fleet = rt.device_fleet
+            timers["fleet_step"] = fleet.step = _Timed(fleet.step)
+            timers["host_sync"] = fleet.sync_host = _Timed(fleet.sync_host)
+        for hook in ("shard_observe", "bus_decide", "shard_actuate",
+                     "bus_resolve"):
+            timers[hook] = _Timed(getattr(policy, hook))
+            setattr(policy, hook, timers[hook])
+        kernel.reset_launches()
+        t0 = time.perf_counter()
+        res = rt.run(duration)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(kernel.launches)
+        batches = _check_probe_batches(models, timers)
+        stats = rt.bus.stats()
+        gate(stats["max_staleness_seen"] <= rt.max_staleness,
+             f"the bus delivered staleness {stats['max_staleness_seen']} "
+             f"past its bound {rt.max_staleness}")
+        gate(policy.decision_count > 0, "no CARAT decisions were made")
+        if dev.type == "cuda":
+            gate(launches["gbdt_grid_logits"] == batches,
+                 "a sharded probe batch was scored outside "
+                 "gbdt_grid_logits")
+            gate(launches["gbdt_logits"] > 0,
+                 "gbdt_logits never ran on the bus path")
+        sigs[key] = _signature(sim, policy, res)
+        out[key] = {
+            "backend": backend, "decision_count": policy.decision_count,
+            "actuations": _actuation_kinds(policy),
+            "signature": _digest(sigs[key]), "probe_batches": batches,
+            "batches_bit_identical": True, "launches": launches,
+            "bus": stats, "ms_per_interval": wall * 1e3 / intervals,
+            "breakdown_ms_per_interval": {
+                name: t.seconds * 1e3 / intervals
+                for name, t in timers.items() if t.seconds > 0.0}}
+    names = ("cache limits", "decisions", "throughput series",
+             "read bytes", "write bytes")
+    for name, a, b in zip(names, sigs["a"], sigs["b"]):
+        gate(a == b, f"sharded CARAT on soa: {name} differ from "
+                     f"Simulation.run")
+    out["soa_sharded_identical"] = True
+    blocks = len(fleet.blocks)
+    out["c"]["blocks"] = blocks
+    if carat is not None and blocks == 1:
+        gate(out["c"]["signature"] == carat["signature"],
+             "sharded CARAT on one device parted from the carat phase")
+        out["c"]["identical_to_carat_phase"] = True
+    if carat is not None:
+        out["carat_phase"] = {
+            "ms_per_interval": carat["ms_per_interval"],
+            "decision_count": carat["decision_count"],
+            "actuations": carat["actuations"]}
     return out
 
 
@@ -1099,6 +1345,19 @@ def main() -> int:
     emit(phase_fleet(dev, 100_000, 16, seed=0))
     carat = phase_carat(dev, 4096, 20, seed=0, node_size=16, flip_at=5.0)
     emit(carat)
+    # CARAT's multi-client deployment: trace replay, the sharded device
+    # fleet, and the CARAT loop under the sharded runtime's bus
+    emit(phase_replay(dev, 4096, node_size=16, intervals=40, seed=8))
+    emit(phase_sharded_fleet(dev, 100_000, 16, seed=0, node_size=16,
+                             n_shards=4))
+    sharded = phase_sharded_carat(dev, 4096, 20, seed=0, node_size=16,
+                                  flip_at=5.0, n_shards=4, carat=carat)
+    emit(sharded)
+    # the GBDT kernels' launches: the carat path's and both sharded runs'
+    gbdt_launches = {name: carat["launches"][name]
+                     + sharded["b"]["launches"][name]
+                     + sharded["c"]["launches"][name]
+                     for name in carat["launches"]}
 
     # the LM serving path: granite-3-2b at full width and depth
     granite = get_arch("granite-3-2b")
@@ -1125,7 +1384,7 @@ def main() -> int:
     emit(kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
          "flash_attention": fa, "decode_attention": dec},
-        {**carat["launches"],
+        {**gbdt_launches,
          "flash_attention": serve["prefill"]["launches"]["flash_attention"],
          "decode_attention":
              serve["generate"]["launches"]["decode_attention"]}))

@@ -26,9 +26,29 @@ scalar path (a bootstrap pick after a re-probe) through
 On ``device="cpu"`` both run their plain torch versions; every path is
 bit-identical to ``ObliviousGBDT.predict_proba``.
 
-The reference's sharded execution (``shard_observe`` / ``bus_decide`` /
-``shard_actuate``, the stage-2 bus round and ``shard_state``) waits for
-the sharded runtime's port.
+Sharded execution: CARAT is ``gather = "fleet"`` — under a
+:class:`~repro_torch.core.runtime.sharded.ShardedRuntime`, shards publish
+``(client_id, (op, feats, rng_state))`` observation messages — the
+tuner RNG travels as *serialized state*
+(:meth:`repro_torch.utils.rng.RngStream.state`), never as a live
+generator, so the protocol stays object-free on the bus. The
+coordinator restores member order, rebuilds the per-client streams,
+runs the one batched decision engine over the gathered batch (the
+GBDT kernels on ``device``), and scatters
+``(client_id, (op, proposal, share, rng_state'))`` decisions back;
+``shard_actuate`` installs the advanced stream state before applying —
+so a decided client's RNG trajectory is exactly the single-process one,
+and a *dropped* stale observation leaves the stream untouched (the draw
+never happened). The stage-2 drain rides the request/reply round:
+shards publish pending node demand rows keyed by arbiter rank, the
+coordinator batches every gathered node into one
+``cache_allocation_many`` call — with ``budget_trading`` the
+:func:`trade_node_budgets` pass runs over that same gathered batch,
+which is how budget moves *across shards* — and shards apply the
+returned allocation rows. :meth:`CaratPolicy.shard_state` /
+:meth:`CaratPolicy.merge_shard_state` carry a shard's controller shells
+(stage machines, arbiters, tuner RNGs, decision logs) across a
+snapshot/restore or repartition boundary.
 """
 from __future__ import annotations
 
@@ -37,7 +57,7 @@ from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 import numpy as np
 
 from repro_torch.config import CaratConfig
-from repro_torch.core.cache_tuner import (CacheDemandBatch,
+from repro_torch.core.cache_tuner import (CacheDemand, CacheDemandBatch,
                                           cache_allocation,
                                           cache_allocation_many,
                                           trade_node_budgets)
@@ -179,6 +199,7 @@ class CaratPolicy(TuningPolicy):
     """
 
     name = "carat"
+    gather = "fleet"
 
     def __init__(
         self,
@@ -310,7 +331,9 @@ class CaratPolicy(TuningPolicy):
     def _propose_batch(self, ops: List[str], feats: np.ndarray,
                        rngs: List[RngStream]) -> List[tuple]:
         """The shared decision engine: one ``propose_many`` call plus the
-        fleet accounting, drawing from the shells' own RNG streams."""
+        fleet accounting. ``decide_many`` feeds it the shells' own RNG
+        streams; ``bus_decide`` feeds it streams rebuilt from serialized
+        state — same draws either way."""
         t0 = perf_s()
         proposals = self.tuner.propose_many(ops, feats, rngs=rngs)
         elapsed = perf_s() - t0
@@ -405,6 +428,196 @@ class CaratPolicy(TuningPolicy):
             self.stage2_events.append(
                 (logged, budgets, np.array(effective, dtype=np.float64),
                  crossings))
+
+    # ------------------------------------------------------ sharded/bus path
+    def _member_ranks(self) -> Dict[int, int]:
+        """client_id -> position in the fleet member order (the order the
+        single-process ``step`` batches observations in)."""
+        return {c.client_id: i for i, c in enumerate(self.controllers)}
+
+    def _ranked_arbiters(self) -> List[Tuple[int, NodeCacheArbiter]]:
+        """(rank, arbiter) per unique arbiter; rank = index of its first
+        member in the controller order — the order ``finish_step`` drains
+        pending nodes in, which keeps sync-sharded batches identical."""
+        out: List[Tuple[int, NodeCacheArbiter]] = []
+        seen = set()
+        for i, ctrl in enumerate(self.controllers):
+            a = ctrl.arbiter
+            if a is not None and id(a) not in seen:
+                seen.add(id(a))
+                out.append((i, a))
+        return out
+
+    def validate_shards(self, shard_of: Mapping[int, object]) -> None:
+        """Reject shard partitions that split a stage-2 node arbiter:
+        arbiters are node-local state, so all of a node's members must
+        land in one shard (``ShardedRuntime`` calls this at build)."""
+        for rank, arb in self._ranked_arbiters():
+            shards = {shard_of.get(m.client_id) for m in arb.members}
+            if len(shards) > 1:
+                raise ValueError(
+                    f"stage-2 arbiter over clients "
+                    f"{[m.client_id for m in arb.members]} spans shards "
+                    f"{sorted(map(str, shards))}; node groups must not be "
+                    f"split across shards")
+
+    def shard_observe(self, clients: Sequence[IOClient], t: float,
+                      dt: float) -> List[Tuple[int, tuple]]:
+        """Observe this shard's shells in member order; pending stage-1
+        requests become ``(client_id, (op, feats, rng_state))`` messages.
+        The tuner stream crosses the bus as serialized state — no live
+        generator (or shell) reference leaves the shard."""
+        by_id = {c.client_id: c for c in clients}
+        out: List[Tuple[int, tuple]] = []
+        with _telemetry().span("policy.observe", cat="policy"):
+            for ctrl in self.controllers:
+                client = by_id.get(ctrl.client_id)
+                if client is None:
+                    continue                # lives on another shard
+                req = ctrl.observe(client, t, dt)
+                if req is not None:
+                    out.append((ctrl.client_id,
+                                (req[0], req[1], ctrl.tuner.rng.state())))
+        return out
+
+    def bus_decide(self, obs: Sequence[Tuple[int, tuple]],
+                   t: float) -> List[Tuple[int, tuple]]:
+        """One batched Algorithm 1 over the gathered observations.
+
+        Restores fleet member order first, so a sync-mode barrier gather
+        feeds the decision engine the exact batch the single-process
+        ``step`` builds — decisions stay bit-identical. Draws come from
+        per-client streams rebuilt from the observations' serialized
+        state, and each decision carries the advanced state back to the
+        owning shard — the coordinator needs no shell access, so the
+        same code serves in-process and cross-process transports.
+        """
+        if not obs:
+            return []
+        ranks = self._member_ranks()
+        obs = sorted(obs, key=lambda p: ranks[p[0]])
+        ops = [op for _, (op, _, _) in obs]
+        feats = np.stack([f for _, (_, f, _) in obs])
+        rngs = [RngStream.from_state(s) for _, (_, _, s) in obs]
+        with _telemetry().span("policy.decide", cat="policy"):
+            decisions = self._propose_batch(ops, feats, rngs)
+        return [(cid, (op, proposal, share, rng.state()))
+                for (cid, (op, _f, _s)), (proposal, share), rng
+                in zip(obs, decisions, rngs)]
+
+    def shard_actuate(self, clients: Sequence[IOClient],
+                      decisions: Sequence[Tuple[int, tuple]],
+                      t: float) -> None:
+        with _telemetry().span("policy.actuate", cat="policy"):
+            for cid, (op, proposal, share, rng_state) in decisions:
+                ctrl = self._shell(cid)
+                # install the coordinator's advanced stream before
+                # applying: the shell's RNG trajectory stays exactly the
+                # single-process one (and an observation dropped for
+                # staleness leaves it untouched — that draw never
+                # happened anywhere)
+                ctrl.tuner.rng.set_state(rng_state)
+                ctrl.actuate(op, proposal, t, share)
+
+    def shard_collect(self, clients: Sequence[IOClient],
+                      t: float) -> List[Tuple[int, tuple]]:
+        """Pending stage-2 node boundaries owned by this shard, as
+        ``(arbiter_rank, (rows, budget_mb, crossings))`` requests."""
+        mine = {c.client_id for c in clients}
+        out: List[Tuple[int, tuple]] = []
+        for rank, arb in self._ranked_arbiters():
+            if arb.pending and arb.members[0].client_id in mine:
+                out.append((rank, (arb.collect_rows(), arb.budget(),
+                                   arb.crossings)))
+        return out
+
+    def bus_resolve(self, requests: Sequence[Tuple[int, tuple]],
+                    t: float) -> List[Tuple[int, tuple]]:
+        """Batched Algorithm 2 over every gathered node: one
+        ``cache_allocation_many`` call (or the scalar loop in
+        ``stage2="scalar"`` mode), with ``budget_trading`` moving budget
+        across all gathered nodes — including nodes from different
+        shards, which is how cross-shard trading happens. Replies are
+        ``(arbiter_rank, (allocation_row, effective_budget_mb))``.
+        """
+        if not requests:
+            return []
+        requests = sorted(requests, key=lambda p: p[0])
+        all_rows = [rows for _, (rows, _, _) in requests]
+        budgets = np.array([b for _, (_, b, _) in requests],
+                           dtype=np.float64)
+        crossings = [k for _, (_, _, k) in requests]
+        logged = None
+        if self.stage2_events is not None:
+            logged = [[CacheDemand(cid, act, pc, pi, w)
+                       for cid, act, pc, pi, w in zip(*rows)]
+                      for rows in all_rows]
+        t0 = perf_s()
+        if self.stage2 == "batched":
+            batch = CacheDemandBatch.from_rows(all_rows, budgets)
+            effective = (trade_node_budgets(batch, self.spaces)
+                         if self.budget_trading else batch.node_budgets_mb)
+            rows_out = cache_allocation_many(batch, self.spaces,
+                                             effective).tolist()
+        else:
+            demands = [[CacheDemand(cid, act, pc, pi, w)
+                        for cid, act, pc, pi, w in zip(*rows)]
+                       for rows in all_rows]
+            if self.budget_trading:
+                effective = trade_node_budgets(
+                    CacheDemandBatch.from_rows(all_rows, budgets),
+                    self.spaces)
+            else:
+                effective = budgets
+            allocs = [cache_allocation(d, self.spaces, float(b))
+                      for d, b in zip(demands, effective)]
+            # positional rows in member order (cache_allocation covers
+            # every member, so this is apply()-equivalent via apply_slots)
+            rows_out = [[alloc[dd.client_id] for dd in d]
+                        for d, alloc in zip(demands, allocs)]
+        elapsed = perf_s() - t0
+        self.arbiter_time_total += elapsed
+        self.arbiter_batch_count += 1
+        self.node_retune_count += len(requests)
+        self.boundary_count += sum(crossings)
+        if self.stage2_events is not None:
+            self.stage2_events.append(
+                (logged, budgets, np.array(effective, dtype=np.float64),
+                 crossings))
+        eff = np.asarray(effective, dtype=np.float64).tolist()
+        return [(rank, (vals, e))
+                for (rank, _), vals, e in zip(requests, rows_out, eff)]
+
+    def shard_apply(self, replies: Sequence[Tuple[int, tuple]],
+                    t: float) -> None:
+        by_rank = dict(self._ranked_arbiters())
+        for rank, (values, _effective) in replies:
+            by_rank[rank].apply_slots(values)
+
+    # ------------------------------------------------- snapshot / restore
+    def shard_state(self, client_ids: Sequence[int]) -> List[CaratController]:
+        """The policy state owned by one shard: its controller shells
+        (stage machines, node arbiters, tuner RNGs, decision logs).
+        Returned live — the transport pickles the whole shard blob in one
+        graph, so ``controller.client`` identity with the shard's clients
+        survives the round trip."""
+        keep = {int(i) for i in client_ids}
+        return [c for c in self.controllers if c.client_id in keep]
+
+    def merge_shard_state(self, state: Sequence[CaratController]) -> None:
+        """Install shells restored from :meth:`shard_state`, replacing
+        this policy's by client id (member order — and so decision
+        batching — is preserved)."""
+        slot = {c.client_id: i for i, c in enumerate(self.controllers)}
+        for ctrl in state:
+            i = slot.get(ctrl.client_id)
+            if i is None:
+                raise KeyError(f"restored shell for unknown client "
+                               f"{ctrl.client_id}")
+            self.controllers[i] = ctrl
+        # the in-place replacement keeps the same list object, which the
+        # id->shell cache keys on — drop it or lookups serve stale shells
+        self._shell_cache = None
 
     # ----------------------------------------------------------- accounting
     @property

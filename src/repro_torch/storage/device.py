@@ -1,13 +1,12 @@
 """Device-resident fleet stepping for the ``soa-torch`` backend.
 
 :class:`DeviceFleet` keeps every per-client state and counter array and
-the per-OST cluster state as float64 torch tensors on one device across
+the per-OST cluster state as float64 torch tensors on the device across
 intervals, and advances the whole fleet one interval per Python call:
-plan terms, the per-OST demand reduction, the resolve, the commit, and
-the next interval's duty activity and OST-activity mask, with no
-transfer of fleet state to the host. It is the torch rewrite of the
-reference's ``repro/storage/device.py::DeviceFleet``, whose fused jit has
-no counterpart here: PyTorch runs eagerly.
+duty activity, plan terms, the per-OST demand reduction, the resolve and
+the commit, with no transfer of fleet state to the host. It is the torch
+rewrite of the reference's ``repro/storage/device.py::DeviceFleet``,
+whose fused jit has no counterpart here: PyTorch runs eagerly.
 
 * The per-OST resolve runs on sufficient statistics of the per-channel
   demand lanes (``Σwindow, Σrate, Σrate·pages, Σpages, count``), reduced
@@ -19,13 +18,20 @@ no counterpart here: PyTorch runs eagerly.
   against host ``soa`` (as the reference's ``soa-jax`` is held).
 * The OST service noise comes from the cluster's NumPy RNG stream, so
   host and device stay on the *same* RNG trajectory (one lognormal per
-  active OST in ascending id order). Each step therefore returns the
-  predicted next-interval OST-activity mask, and the host draws the next
-  interval's noise from it and uploads ``(n_osts,)`` values: the one
-  small synchronisation per interval.
+  active OST in ascending id order). Each step therefore counts each
+  OST's demand lanes on the device first, pulls the (n_osts,) activity
+  mask, and the host draws the interval's noise from it and uploads
+  ``(n_osts,)`` values: the one small synchronisation per interval.
 * The plan-term statics ride as device tensors, re-uploaded only when a
   workload or config setter dirtied them; the one-hot OST matrix is
   rebuilt only when the channel layout changes.
+* The fleet's rows may split into blocks on several devices (the sync
+  sharded runtime's :class:`ShardedDeviceFleet`, one block per device):
+  each block's plan emits the (5, n_osts) demand partials, the partials
+  merge by addition **on the primary device**, in block order, before
+  the one globally-coupled resolve, and the (scale, waits) feedback
+  commits block-locally. Across blocks the merge reassociates, so it is
+  held to the one-block fleet at ``rtol=1e-9``, never to ``==``.
 
 Ownership: whichever fleet last stepped owns the truth. Host-side reads
 go through :meth:`SoACore.ensure_host` (lazy pull); host-side state
@@ -33,7 +39,7 @@ writes mark the device copy stale and the next device step re-uploads.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -364,74 +370,144 @@ def _commit(p: PFSParams, s: Dict, state: Dict, terms: Dict,
     }
 
 
-def _activity_mask(s: Dict, dirty, act) -> torch.Tensor:
-    """(n_osts,) bool: OSTs receiving >=1 demand lane this interval — the
-    exact condition under which the host resolver draws OST noise."""
+def _activity_lanes(s: Dict, dirty, act) -> torch.Tensor:
+    """(n,) bool: which clients offer demands given ``dirty`` state and
+    the duty activity ``act`` for the interval — the exact condition
+    under which ``PlanBatch.demand_batch`` emits a lane (and therefore
+    under which the host resolver draws OST noise)."""
     planned = act | (dirty > 0.0)
     has_write = planned & (~s["is_read"] | (dirty > 0.0))
     has_read = planned & act & (s["is_read"] | s["is_mixed"])
-    lanes = ((has_write | has_read)[:, None] & s["ch_valid"]).ravel()
-    cnt = _segment_reduce(s["onehot_T"], lanes.to(_F64)[None, :])
-    return cnt[0] > 0.0
+    return has_write | has_read
+
+
+def _activity_counts(s: Dict, dirty, act) -> torch.Tensor:
+    """(n_osts,) f64 count of the demand lanes each OST receives."""
+    lanes = (_activity_lanes(s, dirty, act)[:, None] & s["ch_valid"]).ravel()
+    return _segment_reduce(s["onehot_T"], lanes.to(_F64)[None, :])[0]
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: ``torch.device("cuda")`` names whichever
+    card is current and compares unequal to ``torch.device("cuda", 0)``,
+    so device identity is only decided on indexed devices."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _host_rows(core: SoACore,
+               cluster: PFSCluster) -> Tuple[List[np.ndarray],
+                                             List[np.ndarray]]:
+    """The host arrays of ``_CLIENT_ROWS`` then ``OST_STATE_FIELDS``
+    (fetched anew: the cluster's resolve rebinds its arrays)."""
+    named = {"dirty": core.dirty_bytes, "last_drain": core.last_drain,
+             "dirty_peak": core.dirty_peak_bytes,
+             "inflight_peak": core.inflight_peak}
+    rows = [named[k[0]] if len(k) == 1
+            else getattr(getattr(core, k[0]), k[1])
+            for k in _CLIENT_ROWS]
+    return rows, [cluster.wait_s, cluster.utilization, cluster.inflight,
+                  cluster.served_bytes, cluster.served_rpcs]
+
+
+def _client_state(packed: torch.Tensor) -> Dict:
+    """Unpack the stacked ``_CLIENT_ROWS`` into the client state dict."""
+    state: Dict = {"read": {}, "write": {}}
+    for k, row in zip(_CLIENT_ROWS, packed):
+        if len(k) == 1:
+            state[k[0]] = row
+        else:
+            state[k[0]][k[1]] = row
+    return state
+
+
+def _pack_client_state(state: Dict) -> np.ndarray:
+    """The client state dict as one host array, rows in ``_CLIENT_ROWS``
+    order (one device-to-host copy)."""
+    return torch.stack([state[k[0]] if len(k) == 1 else state[k[0]][k[1]]
+                        for k in _CLIENT_ROWS]).cpu().numpy()
+
+
+def _take_ownership(fleet) -> None:
+    """Make ``fleet`` its core's device owner, syncing any previous
+    owner's state through the host arrays first."""
+    core = fleet.core
+    old = core._device
+    if old is fleet:
+        return
+    if old is not None:
+        if old.host_stale:
+            old.sync_host()
+        old.device_stale = True
+    core._device = fleet
+    fleet.device_stale = True
 
 
 # ---------------------------------------------------------------------------
-# single-device fleet
+# the device fleet
 # ---------------------------------------------------------------------------
 class DeviceFleet:
-    """Device-resident full-fleet stepping for
-    ``Simulation(backend="soa-torch")``.
+    """Device-resident fleet stepping for ``Simulation(backend="soa-torch")``
+    and the sync sharded runtime.
 
-    One :meth:`step` call advances the whole fleet an interval on the
-    device; the only per-step host traffic is the OST noise in
-    (``n_osts`` values) and the predicted activity mask out.
+    The core's client rows split into *blocks*: block ``b`` holds the
+    ascending rows ``blocks[b]`` on ``devices[b]``; by default one block
+    holds the whole fleet on ``device``. Each block's plan emits the
+    (5, n_osts) demand partials and its per-OST demand-lane counts; both
+    merge by addition on ``device`` (the primary) in block order, the one
+    resolve runs there against the per-OST state, and the broadcast
+    (scale, waits) feedback commits block-locally. One :meth:`step` call
+    advances the whole fleet an interval; the only per-step host traffic
+    is the OST activity mask out and the noise drawn from it in
+    (``n_osts`` values each way).
+
+    With one block nothing merges. With more, the merge reassociates the
+    sums across blocks, held to the one-block fleet at ``rtol=1e-9``.
     """
 
-    def __init__(self, core: SoACore, cluster: PFSCluster,
-                 device: torch.device):
+    def __init__(self, core: SoACore, cluster: PFSCluster, device,
+                 blocks: Optional[Sequence[np.ndarray]] = None,
+                 devices: Optional[Sequence] = None):
         self.core = core
         self.cluster = cluster
-        self.device = torch.device(device)
+        self.device = _indexed(device)
+        self.blocks = ([np.arange(core.n)] if blocks is None
+                       else [np.asarray(b, dtype=np.int64) for b in blocks])
+        self.devices = ([self.device] * len(self.blocks) if devices is None
+                        else [_indexed(d) for d in devices])
+        if len(self.devices) != len(self.blocks):
+            raise ValueError(f"{len(self.blocks)} blocks but "
+                             f"{len(self.devices)} devices")
+        # a block of every row indexes by slice: views, not copies
+        self._index = [slice(None) if len(b) == core.n else b
+                       for b in self.blocks]
         self.host_stale = False      # host arrays lag the device state
         self.device_stale = True     # device copy lags the host arrays
-        self._state: Optional[Dict] = None
-        self._statics: Optional[Dict] = None
+        self._states: List[Dict] = []
+        self._ost_state: Optional[Dict] = None
+        self._statics: List[Dict] = []
         self._static_seen = -1
         self._layout_seen = None
-        self._onehot_T: Optional[torch.Tensor] = None
-        self._wl_seen = -1
-        self._mask: Optional[np.ndarray] = None
+        self._onehots: List[torch.Tensor] = []
+
+    def _on(self, x: torch.Tensor, dev: torch.device) -> torch.Tensor:
+        return x if dev == self.device else x.to(dev)
 
     # ------------------------------------------------------- host <-> device
-    def _host_rows(self) -> Tuple[List[np.ndarray], List[np.ndarray]]:
-        """The host arrays of ``_CLIENT_ROWS`` then ``OST_STATE_FIELDS``
-        (fetched anew: the cluster's resolve rebinds its arrays)."""
-        core, cl = self.core, self.cluster
-        named = {"dirty": core.dirty_bytes, "last_drain": core.last_drain,
-                 "dirty_peak": core.dirty_peak_bytes,
-                 "inflight_peak": core.inflight_peak}
-        rows = [named[k[0]] if len(k) == 1
-                else getattr(getattr(core, k[0]), k[1])
-                for k in _CLIENT_ROWS]
-        return rows, [cl.wait_s, cl.utilization, cl.inflight,
-                      cl.served_bytes, cl.served_rpcs]
-
     def _push(self) -> None:
-        """Upload host state to the device (host stays valid until the
+        """Upload host state to the devices (host stays valid until the
         next step marks it stale)."""
-        rows, ost = self._host_rows()
-        packed = torch.as_tensor(np.stack(rows), device=self.device)
-        state: Dict = {"read": {}, "write": {}}
-        for k, row in zip(_CLIENT_ROWS, packed):
-            if len(k) == 1:
-                state[k[0]] = row
-            else:
-                state[k[0]][k[1]] = row
-        state.update(zip(OST_STATE_FIELDS,
-                         torch.as_tensor(np.stack(ost), device=self.device)))
-        self._state = state
+        rows, ost = _host_rows(self.core, self.cluster)
+        packed = np.stack(rows)
+        self._states = [_client_state(torch.as_tensor(packed[:, ix],
+                                                      device=dev))
+                        for ix, dev in zip(self._index, self.devices)]
+        self._ost_state = dict(zip(
+            OST_STATE_FIELDS,
+            torch.as_tensor(np.stack(ost), device=self.device)))
         self.device_stale = False
-        self._mask = None            # dirty may have changed: recompute
 
     def _refresh_statics(self) -> None:
         core = self.core
@@ -439,82 +515,131 @@ class DeviceFleet:
         if self._static_seen == core._static_version:
             return
         st = core._static
-        dev = self.device
-        d = {f: torch.as_tensor(np.asarray(getattr(st, f)), device=dev)
-             for f in STATIC_FIELDS}
-        layout = core._layout
-        if self._layout_seen is not layout:
+        if self._layout_seen is not core._layout:
             # the channel->OST map changes only with the layout, not with
             # the config/workload values every actuation re-uploads
-            self._onehot_T = torch.as_tensor(
-                _onehot_T(core.p.n_osts, st.ch_ost), device=dev)
-            self._layout_seen = layout
-        d["onehot_T"] = self._onehot_T
-        self._statics = d
+            ch_ost = np.asarray(st.ch_ost)
+            self._onehots = [
+                torch.as_tensor(_onehot_T(core.p.n_osts, ch_ost[ix]),
+                                device=dev)
+                for ix, dev in zip(self._index, self.devices)]
+            self._layout_seen = core._layout
+        self._statics = []
+        for ix, dev, onehot in zip(self._index, self.devices,
+                                   self._onehots):
+            d = {f: torch.as_tensor(np.asarray(getattr(st, f))[ix],
+                                    device=dev)
+                 for f in STATIC_FIELDS}
+            d["onehot_T"] = onehot
+            self._statics.append(d)
         self._static_seen = core._static_version
 
     def sync_host(self) -> None:
-        """Pull device state back into the core/cluster host arrays.
-        The device copy remains authoritative (reads don't invalidate)."""
-        s = self._state
-        rows = torch.stack([s[k[0]] if len(k) == 1 else s[k[0]][k[1]]
-                            for k in _CLIENT_ROWS]).cpu().numpy()
-        ost = torch.stack([s[f] for f in OST_STATE_FIELDS]).cpu().numpy()
-        host_rows, host_ost = self._host_rows()
-        for dst, row in zip(host_rows + host_ost, list(rows) + list(ost)):
+        """Pull every block's state and the OST state back into the
+        core/cluster host arrays. The device copies stay authoritative
+        (reads don't invalidate)."""
+        host_rows, host_ost = _host_rows(self.core, self.cluster)
+        for ix, state in zip(self._index, self._states):
+            for dst, row in zip(host_rows, _pack_client_state(state)):
+                dst[ix] = row
+        ost = torch.stack([self._ost_state[f]
+                           for f in OST_STATE_FIELDS]).cpu().numpy()
+        for dst, row in zip(host_ost, ost):
             dst[:] = row
         # full-fleet contract: every client's waits row is the OST vector
         self.core.waits[:, :] = ost[0][None, :]
         self.host_stale = False
 
-    def _take_ownership(self) -> None:
-        """Become the core's device owner (syncing any previous owner's
-        state through the host arrays first)."""
-        core = self.core
-        old = core._device
-        if old is self:
-            return
-        if old is not None:
-            if old.host_stale:
-                old.sync_host()
-            old.device_stale = True
-        core._device = self
-        self.device_stale = True
+    def host_totals(self, totals: Sequence[torch.Tensor]) -> np.ndarray:
+        """:meth:`step`'s per-block totals as one (n,) host array."""
+        out = np.empty(self.core.n)
+        for ix, tot in zip(self._index, totals):
+            out[ix] = tot.cpu().numpy()
+        return out
 
     # ----------------------------------------------------------------- step
-    def step(self, t: float, dt: float) -> torch.Tensor:
-        """Advance the fleet one interval on the device; returns the
-        per-client cumulative read+write app_bytes as a *device* tensor
-        (callers pull it only if they need the throughput series)."""
-        core = self.core
-        p = core.p
-        self._take_ownership()
-        if self.device_stale or self._state is None:
+    def step(self, t: float, dt: float) -> List[torch.Tensor]:
+        """Advance the fleet one interval on its devices; returns each
+        block's per-client cumulative read+write app_bytes as a tensor on
+        its device, in block order (callers pull them only if they need
+        the throughput series: :meth:`host_totals`)."""
+        p = self.core.p
+        _take_ownership(self)
+        if self.device_stale or self._ost_state is None:
             self._push()
         self._refresh_statics()
-        s = self._statics
-        state = self._state
-        if self._mask is None or self._wl_seen != core._wl_version:
-            # no valid predicted mask (fresh push or workload mutation):
-            # recompute this interval's duty activity + OST mask
-            state["act"] = _duty_act(s, t)
-            self._mask = _activity_mask(s, state["dirty"],
-                                        state["act"]).cpu().numpy()
-            self._wl_seen = core._wl_version
-        noise = torch.as_tensor(self.cluster._noise_for(self._mask),
-                                device=self.device)
-        terms = _plan_terms(p, s, state["dirty"], state["last_drain"],
-                            state["ost_wait"], state["act"], dt)
-        partials = _demand_partials(s, terms)
-        ost_out, scale_out, new_wait = _resolve(
-            p, {f: state[f] for f in OST_STATE_FIELDS}, partials, noise, dt)
-        new_state = {**_commit(p, s, state, terms, scale_out, new_wait, dt),
-                     **ost_out}
-        # next interval's duty activity rides in the state, so the
-        # periodic term is evaluated once per interval
-        new_state["act"] = _duty_act(s, t + dt)
-        self._state = new_state
-        self._mask = _activity_mask(s, new_state["dirty"],
-                                    new_state["act"]).cpu().numpy()
+
+        wait_vec = self._ost_state["ost_wait"]
+        terms, merged, counts = [], None, None
+        for state, s, dev in zip(self._states, self._statics, self.devices):
+            act = _duty_act(s, t)
+            term = _plan_terms(p, s, state["dirty"], state["last_drain"],
+                               self._on(wait_vec, dev), act, dt)
+            terms.append(term)
+            # block order, one blocking copy each: a deterministic sum
+            part = _demand_partials(s, term).to(self.device)
+            cnt = _activity_counts(s, state["dirty"], act).to(self.device)
+            merged = part if merged is None else merged + part
+            counts = cnt if counts is None else counts + cnt
+        # the host draws this interval's noise for the OSTs with demand
+        noise = torch.as_tensor(
+            self.cluster._noise_for((counts > 0.0).cpu().numpy()),
+            device=self.device)
+        ost_out, scale_out, new_wait = _resolve(p, self._ost_state, merged,
+                                                noise, dt)
+        self._ost_state = ost_out
+
+        totals, new_states = [], []
+        for term, state, s, dev in zip(terms, self._states, self._statics,
+                                       self.devices):
+            out = _commit(p, s, state, term, self._on(scale_out, dev),
+                          self._on(new_wait, dev), dt)
+            new_states.append(out)
+            totals.append(out["read"]["app_bytes"]
+                          + out["write"]["app_bytes"])
+        self._states = new_states
         self.host_stale = True
-        return new_state["read"]["app_bytes"] + new_state["write"]["app_bytes"]
+        return totals
+
+
+# ---------------------------------------------------------------------------
+# shard -> device placement (sync sharded runtime)
+# ---------------------------------------------------------------------------
+def shard_devices(primary, n_shards: int) -> List[torch.device]:
+    """Where the sharded runtime puts its shards: on ``cuda`` shard ``i``
+    goes on visible card ``i % count``; on any other device type every
+    shard shares ``primary``."""
+    primary = _indexed(primary)
+    if primary.type != "cuda":
+        return [primary] * n_shards
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i % count) for i in range(n_shards)]
+
+
+class ShardedDeviceFleet(DeviceFleet):
+    """The sharded runtime's shards placed on devices.
+
+    Shard ``i``'s client rows (``shard_idx[i]`` of the core) go on
+    ``devices[i]``. The shards that share a device form one block of
+    :class:`DeviceFleet`, so each device plans and commits its shards'
+    rows in one pass, and one demand partial per device merges on
+    ``primary``. On a one-card machine every shard shares the card: one
+    block, the single-device fleet's own sums and results bit for bit,
+    and the cross-device copies (``.to(primary)`` and back) are never
+    taken.
+    """
+
+    def __init__(self, core: SoACore, cluster: PFSCluster,
+                 shard_idx: Sequence[np.ndarray], devices: Sequence,
+                 primary):
+        if len(devices) != len(shard_idx):
+            raise ValueError(f"{len(shard_idx)} shards but "
+                             f"{len(devices)} devices")
+        self.shard_devices = [_indexed(d) for d in devices]
+        rows: Dict[torch.device, List[np.ndarray]] = {}
+        for ix, dev in zip(shard_idx, self.shard_devices):
+            rows.setdefault(dev, []).append(np.asarray(ix, dtype=np.int64))
+        super().__init__(core, cluster, primary,
+                         blocks=[np.sort(np.concatenate(r))
+                                 for r in rows.values()],
+                         devices=list(rows))

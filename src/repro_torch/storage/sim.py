@@ -16,9 +16,10 @@ The interval itself decomposes into shard-steppable phases —
 :meth:`Simulation.resolve_phase` (the one globally-coupled point: every
 demand meets the shared OST queues), and :meth:`Simulation.commit_phase`
 (per-client, independent). :meth:`step` composes them over the whole
-client list; ``repro.core.runtime.ShardedRuntime`` runs the same
-phases per node-group shard in the reference package (the sharded
-runtime is not ported yet).
+client list; :class:`repro_torch.core.runtime.sharded.ShardedRuntime`
+runs the same phases per node-group shard, with policies gathering
+observations and scattering decisions over a message bus instead of
+touching ``sim.clients`` directly.
 
 Backends: ``"soa-torch"`` (the default) keeps the fleet state on a torch
 device across intervals (:class:`repro_torch.storage.device.DeviceFleet`,
@@ -32,8 +33,6 @@ from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
-import torch
-
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.storage.client import ClientConfig, IOClient
 from repro_torch.storage.params import PFSParams
@@ -51,8 +50,8 @@ from repro_torch.utils.rng import RngStream
 FleetHook = Callable[[Sequence[IOClient], float, float], None]
 
 # schedule duck type: anything with ``spec_at(t) -> WorkloadSpec`` (the
-# canonical implementation is repro.storage.replay.WorkloadSchedule, not
-# ported yet; kept structural so sim never imports a replay layer).
+# canonical implementation is repro_torch.storage.replay.WorkloadSchedule;
+# kept structural so sim never imports the replay layer).
 ScheduleLike = object
 
 # policy duck type: ``step(clients, t, dt)`` / ``__call__`` plus optional
@@ -66,11 +65,14 @@ class SchedulePolicy:
 
     Consulted at the top of every step, so workload switches land
     exactly on interval boundaries with carried state (dirty cache,
-    last_wait) deliberately preserved.
+    last_wait) deliberately preserved. Per-client and gather-free by
+    construction — each schedule touches only its own client — so a
+    sharded runtime steps it per shard with no cross-shard messages.
     """
 
     name = "schedule"
     phase = "workload"
+    gather = "none"
 
     def __init__(self, schedules: Mapping[int, "ScheduleLike"]):
         self.schedules: Dict[int, "ScheduleLike"] = {
@@ -138,6 +140,18 @@ class SchedulePolicy:
                                             list(self.schedules), clients)
             st = self._state_for(key, clients,
                                  list(zip(targets, self.schedules.values())))
+        self._step_due(st, t)
+
+    def step_shard(self, clients: Sequence[IOClient], t: float,
+                   dt: float) -> None:
+        key = ("shard", id(clients))
+        st = self._fast.get(key)
+        if st is None or st["clients"] is not clients:
+            by_id = {c.client_id: c for c in clients}
+            pairs = [(by_id[cid], sched)
+                     for cid, sched in self.schedules.items()
+                     if cid in by_id]
+            st = self._state_for(key, clients, pairs)
         self._step_due(st, t)
 
     __call__ = step
@@ -400,8 +414,8 @@ class Simulation:
     def run(self, duration_s: float) -> SimResult:
         n_steps = int(round(duration_s / self.interval_s))
         if self.device_fleet is not None:
-            # device-resident run: each device step returns the (n,)
-            # cumulative app-bytes totals as a device tensor; the series
+            # device-resident run: each device step returns the
+            # cumulative app-bytes totals as device tensors; the series
             # materializes host-side once at the end, so no per-step
             # fleet-state transfer happens (policies that read per-client
             # stats still trigger their own lazy syncs)
@@ -422,8 +436,8 @@ class Simulation:
                     raw.append(core.read.app_bytes + core.write.app_bytes)
             cols = []
             for tot in raw:
-                if isinstance(tot, torch.Tensor):
-                    tot = tot.cpu().numpy()
+                if isinstance(tot, list):
+                    tot = self.device_fleet.host_totals(tot)
                 cols.append((tot - prev) / self.interval_s)
                 prev = tot
             series = (np.stack(cols, axis=1) if cols

@@ -1,4 +1,5 @@
-"""The two telemetry names the core imports: :func:`perf_s` and :func:`active`.
+"""The two telemetry names the core and the runtime import: :func:`perf_s`
+and :func:`active`.
 
 The full telemetry subsystem (rings, exporters, flight recorder) is not
 ported yet, so :func:`active` always returns the disabled recorder,
@@ -28,7 +29,8 @@ _NULL_SPAN = _NullSpan()
 
 
 class NullRecorder:
-    """Disabled recorder: spans and counters do nothing."""
+    """Disabled recorder: spans, counters, histograms and the interval
+mark do nothing."""
 
     enabled = False
 
@@ -36,6 +38,12 @@ class NullRecorder:
         return _NULL_SPAN
 
     def count(self, name: str, value: float = 1.0) -> None:
+        pass
+
+    def hist(self, name: str, value: float) -> None:
+        pass
+
+    def set_interval(self, k: int) -> None:
         pass
 
 

@@ -70,6 +70,44 @@ def test_fleet_and_carat_phases_on_cpu():
     assert carat["actuations"].get("bootstrap", 0) > 0
 
 
+def test_deployment_phases_on_cpu():
+    """The replay, sharded-fleet and sharded-CARAT phases at a small size:
+    their gates (``rtol=1e-9``, bit-identical sharded CARAT on ``soa``,
+    the one-block sharded CARAT on ``soa-torch`` equal to the ``carat``
+    phase, plain-identical probe batches) hold with the plain
+    versions."""
+    replay = chip_smoke.phase_replay(CPU, 48, node_size=16, intervals=12,
+                                     seed=8)
+    assert replay["within_rtol"] and replay["max_rel_bytes"] < 1e-9
+    assert replay["clients"] == replay["schedules"] == 48
+    assert replay["workload_switches"] > 0
+    assert replay["statics_uploads"] > 1
+    fleet = chip_smoke.phase_sharded_fleet(CPU, 96, 4, seed=0, node_size=16,
+                                           n_shards=4)
+    assert fleet["within_rtol"] and fleet["max_rel"] < 1e-9
+    assert fleet["shard_devices"] == ["cpu"] * 4
+    assert fleet["blocks"] == 1 and fleet["max_rel"] == 0.0
+    assert fleet["shard_clients"] == [32, 32, 16, 16]
+    single = chip_smoke.phase_carat(CPU, 64, 20, seed=0, node_size=16,
+                                    flip_at=5.0)
+    carat = chip_smoke.phase_sharded_carat(CPU, 64, 20, seed=0,
+                                           node_size=16, flip_at=5.0,
+                                           n_shards=4, carat=single)
+    assert carat["soa_sharded_identical"]
+    assert carat["c"]["blocks"] == 1
+    assert carat["c"]["identical_to_carat_phase"]
+    assert carat["c"]["signature"] == single["signature"]
+    for run in (carat["b"], carat["c"]):
+        assert run["decision_count"] > 0 and run["probe_batches"] > 0
+        assert run["actuations"].get("bootstrap", 0) > 0
+        assert run["bus"]["max_staleness_seen"] == 0
+        # on the CPU the wrappers run their plain versions: no launches
+        assert run["launches"] == {"gbdt_logits": 0, "gbdt_grid_logits": 0}
+    assert carat["b"]["backend"] == "soa"
+    assert carat["c"]["backend"] == "soa-torch"
+    assert carat["c"]["breakdown_ms_per_interval"]["fleet_step"] > 0.0
+
+
 def test_lm_phases_on_cpu():
     cfg = reduced_config(get_arch("granite-3-2b"))
     cons = chip_smoke.phase_lm_consistency(CPU, cfg, batch=2, n_tokens=6,

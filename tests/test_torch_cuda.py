@@ -1,4 +1,5 @@
-"""The port on a CUDA device: kernels, fleet and CARAT loop.
+"""The port on a CUDA device: kernels, fleet, CARAT loop and the sharded
+runtime.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. On a
 card each one asserts that the kernel it covers actually launched (its
@@ -9,6 +10,7 @@ machine without JAX::
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 """
 import functools
+import threading
 
 import numpy as np
 import pytest
@@ -24,7 +26,10 @@ from repro_torch.kernels.gbdt_infer.ops import (GBDTScorer, GridGBDTScorer,
                                                 pack_gbdt)
 from repro_torch.kernels.gbdt_infer.ref import (gbdt_grid_logits_ref,
                                                 gbdt_logits_ref)
-from repro_torch.storage import Simulation, get_workload
+from repro_torch.core.runtime.sharded import ShardedRuntime
+from repro_torch.storage import (SchedulePolicy, Simulation, get_workload,
+                                 schedule_from_names)
+from repro_torch.storage.device import ShardedDeviceFleet
 
 pytestmark = pytest.mark.cuda
 
@@ -116,7 +121,7 @@ def test_device_fleet_on_cuda_within_tolerance(dev):
     host, fleet = _fleet_pair(dev)
     host.run(6.0)
     fleet.run(6.0)
-    assert fleet.device_fleet._state["dirty"].device.type == "cuda"
+    assert fleet.device_fleet._states[0]["dirty"].device.type == "cuda"
     host.core.ensure_host()
     fleet.core.ensure_host()
     for op in ("read", "write"):
@@ -148,6 +153,140 @@ def test_carat_on_cuda_makes_the_host_decisions(dev):
     assert dev_launches["gbdt_grid_logits"] > 0
     assert any(host_dec) and dev_dec == host_dec
 
+
+# ------------------------------------------------------ the sharded runtime
+def test_sharded_fleet_on_cuda_within_tolerance(dev):
+    """Sync ``ShardedRuntime`` over a ``soa-torch`` sim on the card: the
+    shards live on indexed ``cuda`` devices, one block per card, their
+    totals come back through the host, and the fleet stays within
+    ``rtol=1e-9`` of the single-device fleet (equal to it where every
+    shard shares one card)."""
+    topo = [i // 16 for i in range(512)]
+    wls = [get_workload(WL_CYCLE[i % 4]) for i in range(512)]
+    single = Simulation(wls, seed=4, device=dev, topology=topo)
+    sharded = Simulation(wls, seed=4, device=dev, topology=topo)
+    ra = single.run(6.0)
+    rt = ShardedRuntime(sharded, mode="sync", n_shards=3)
+    rb = rt.run(6.0)
+    fleet = rt.device_fleet
+    assert isinstance(fleet, ShardedDeviceFleet)
+    count = torch.cuda.device_count()
+    assert fleet.shard_devices == [torch.device("cuda", i % count)
+                                   for i in range(3)]
+    assert fleet.device == torch.device("cuda", 0)
+    assert len(fleet.blocks) == min(3, count)
+    assert all(st["dirty"].device.type == "cuda" for st in fleet._states)
+    if count == 1:
+        assert rb.app_write_bytes == ra.app_write_bytes
+        assert rb.client_throughput == ra.client_throughput
+    np.testing.assert_allclose(rb.app_read_bytes, ra.app_read_bytes,
+                               rtol=1e-9)
+    np.testing.assert_allclose(rb.app_write_bytes, ra.app_write_bytes,
+                               rtol=1e-9)
+    np.testing.assert_allclose(np.asarray(rb.client_throughput),
+                               np.asarray(ra.client_throughput),
+                               rtol=1e-8, atol=1e-6)
+    single.core.ensure_host()
+    sharded.core.ensure_host()
+    for op in ("read", "write"):
+        for f in ("app_bytes", "rpc_count", "lat_sum_s", "blocked_s"):
+            np.testing.assert_allclose(
+                getattr(getattr(sharded.core, op), f),
+                getattr(getattr(single.core, op), f), rtol=1e-9, atol=1e-12)
+
+
+_FLIP = {"s_rd_rn_8k": "s_wr_rn_8k", "s_wr_rn_8k": "s_rd_rn_8k",
+         "s_rd_sq_1m": "s_wr_sq_1m", "s_wr_sq_1m": "s_rd_sq_1m"}
+
+
+def _flip_sim(backend, device, n=64):
+    """``n`` clients in nodes of 16 whose op direction flips at 3 s, so
+    every controller re-probes and takes a bootstrap pick."""
+    names = [WL_CYCLE[i % 4] for i in range(n)]
+    sim = Simulation([get_workload(nm) for nm in names], seed=0,
+                     backend=backend, device=device,
+                     topology=[i // 16 for i in range(n)])
+    sim.attach_policy(SchedulePolicy({
+        c.client_id: schedule_from_names([nm, _FLIP[nm]], phase_s=3.0)
+        for c, nm in zip(sim.clients, names)}))
+    return sim
+
+
+def test_carat_bus_round_on_cuda_launches_both_kernels(dev):
+    """CARAT's bus rounds on the card score every probe batch through
+    ``gbdt_grid_logits`` and the bootstrap picks through ``gbdt_logits``,
+    and make the decisions of the single-process loop with the plain
+    versions."""
+    r, w = default_models()
+    models = {"read": r, "write": w}
+    host = _flip_sim("soa", "cpu")
+    want = host.attach_policy(CaratPolicy(SPACES, models, CaratConfig(),
+                                          device="cpu"))
+    host.run(6.0)
+    sim = _flip_sim("soa", dev)
+    policy = sim.attach_policy(CaratPolicy(SPACES, models, CaratConfig(),
+                                           device=dev))
+    rt = ShardedRuntime(sim, mode="sync", n_shards=4)
+    kernel.reset_launches()
+    rt.run(6.0)
+    assert kernel.launches["gbdt_grid_logits"] > 0
+    assert kernel.launches["gbdt_logits"] > 0
+    assert any(want.decisions) and policy.decisions == want.decisions
+
+
+def test_async_coordinator_thread_launches_kernels(dev):
+    """Async mode on a host ``soa`` sim with a ``cuda`` policy: the
+    coordinator loop (on the calling thread, while one thread per shard
+    steps the host fleet) launches the GBDT kernels in its bus rounds,
+    and every shard completes every interval within the staleness
+    bound."""
+    r, w = default_models()
+    sim = _flip_sim("soa", dev)
+    policy = sim.attach_policy(CaratPolicy(SPACES, {"read": r, "write": w},
+                                           CaratConfig(), device=dev))
+    rt = ShardedRuntime(sim, mode="async", max_staleness_intervals=2,
+                        n_shards=4)
+    kernel.reset_launches()
+    rt.run(6.0)
+    assert all(s.interval == 12 for s in rt.shards)
+    assert rt.bus.stats()["max_staleness_seen"] <= 2
+    assert policy.decision_count > 0
+    assert kernel.launches["gbdt_grid_logits"] > 0
+
+
+
+def test_bus_rounds_launch_kernels_from_a_worker_thread(dev):
+    """The sync runtime driven from a thread other than the main one: its
+    bus rounds launch both GBDT kernels from there (the wrappers launch
+    on the tensors' device and its current stream, whatever the thread's
+    current device) and make the decisions of the single-process loop
+    with the plain versions."""
+    r, w = default_models()
+    models = {"read": r, "write": w}
+    host = _flip_sim("soa", "cpu")
+    want = host.attach_policy(CaratPolicy(SPACES, models, CaratConfig(),
+                                          device="cpu"))
+    host.run(6.0)
+    sim = _flip_sim("soa", dev)
+    policy = sim.attach_policy(CaratPolicy(SPACES, models, CaratConfig(),
+                                           device=dev))
+    rt = ShardedRuntime(sim, mode="sync", n_shards=4)
+    errors = []
+
+    def drive():
+        try:
+            rt.run(6.0)
+        except BaseException as e:   # surfaced on the test's thread
+            errors.append(e)
+
+    kernel.reset_launches()
+    worker = threading.Thread(target=drive, name="bus-rounds")
+    worker.start()
+    worker.join()
+    assert not errors, errors
+    assert kernel.launches["gbdt_grid_logits"] > 0
+    assert kernel.launches["gbdt_logits"] > 0
+    assert any(want.decisions) and policy.decisions == want.decisions
 
 # ------------------------------------------ the pairwise plan's boundaries
 TREE_COUNTS = [1, 7, 8, 9, 127, 128, 129, 184, 223, 400, 1000]
