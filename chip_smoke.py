@@ -4,7 +4,7 @@
 Builds every CUDA kernel of ``src/repro_torch`` (one ``nvcc`` per
 source, all at once; the flash-attention library must hold tensor-core
 instructions) and holds each against its plain torch version on the
-card, at the shapes the paths give it. Then it drives the port's two
+card, at the shapes the paths give it. Then it drives the port's
 paths:
 
 * CARAT's online co-tuning loop: the 100k-client ``soa-torch`` fleet
@@ -21,7 +21,11 @@ paths:
 * the LM serving path at granite-3-2b's full width and depth: the
   forward against token-by-token decode in float32 (the attention
   kernels on every layer), then a bfloat16 prefill of 4 x 2048 tokens
-  and ``ServeEngine.generate`` on 8 ragged requests.
+  and ``ServeEngine.generate`` on 8 ragged requests;
+* CARAT's models: the production GBDT pair regenerated under the
+  paper's §IV-B protocol (byte-equal to the committed assets), Table IV
+  (``train_all_models``) with the nets trained on the card, and each net
+  past the reference's bar on its radial task.
 
 Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
@@ -45,6 +49,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
@@ -1296,6 +1301,173 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     return out
 
 
+def _radial_data(n: int = 3000, seed: int = 0, dim: int = 22):
+    """``tests/test_ml.py``'s radial task: label 1 outside the median
+    radius of the first two features."""
+    X = rng(seed).normal(size=(n, dim)).astype(np.float32)
+    r = X[:, 0] ** 2 + X[:, 1] ** 2
+    return X, (r > np.median(r)).astype(np.int32)
+
+
+class _TrainerLog:
+    """Times every call of the trainers ``train_all_models`` calls (read
+    model, then write model, per architecture) by patching them into
+    ``repro_torch.core.ml.train`` for the ``with`` block: host seconds
+    to a synchronized end, device bytes allocated above the call's
+    start, and a net's Adam steps and parameter device."""
+
+    NAMES = ("train_svm", "train_net", "train_gbdt")
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.calls: List[Dict] = []
+
+    def _wrap(self, name: str, fn: Callable) -> Callable:
+        import torch
+
+        def run(*args, **kw):
+            cuda = self.dev.type == "cuda"
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(self.dev)
+                base = torch.cuda.memory_allocated(self.dev)
+            sync(self.dev)
+            t0 = time.perf_counter()
+            model = fn(*args, **kw)
+            sync(self.dev)
+            call = {"model": (args[0].name if name == "train_net"
+                              else name[len("train_"):]),
+                    "s": time.perf_counter() - t0,
+                    "peak_device_bytes": (
+                        torch.cuda.max_memory_allocated(self.dev) - base
+                        if cuda else 0)}
+            if name == "train_net":
+                call["adam_steps"] = model.steps
+                call["param_devices"] = sorted(
+                    {str(p.device) for p in model.module.parameters()})
+            self.calls.append(call)
+            return model
+        return run
+
+    def __enter__(self):
+        from repro_torch.core.ml import train
+        self._saved = {n: getattr(train, n) for n in self.NAMES}
+        for n, fn in self._saved.items():
+            setattr(train, n, self._wrap(n, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.ml import train
+        for n, fn in self._saved.items():
+            setattr(train, n, fn)
+
+    def by_model(self) -> Dict[str, Dict]:
+        out: Dict[str, Dict] = {}
+        for c in self.calls:
+            row = out.setdefault(c["model"], {"train_s": 0.0,
+                                              "peak_device_bytes": 0})
+            row["train_s"] += c["s"]
+            row["peak_device_bytes"] = max(row["peak_device_bytes"],
+                                           c["peak_device_bytes"])
+            if "adam_steps" in c:
+                row["adam_steps"] = row.get("adam_steps", 0) + c["adam_steps"]
+                row["param_devices"] = sorted(set(row.get(
+                    "param_devices", [])) | set(c["param_devices"]))
+        for row in out.values():
+            if "adam_steps" in row:
+                row["ms_per_step"] = 1e3 * row["train_s"] / row["adam_steps"]
+        return out
+
+
+def phase_ml(dev, cache_dir: str, reps: int, duration_s: float,
+             seed: int) -> Dict:
+    """CARAT's models (paper §IV-B, Table IV):
+
+    1. ``get_default_models`` under the full production protocol (reps
+       32, 60 s workloads, seed 0) into ``cache_dir``: both files must
+       equal the committed ``assets/gbdt_{read,write}_s0.npz`` byte for
+       byte (collection and GBDT training are host work);
+    2. ``train_all_models(reps, duration_s, seed)`` with the nets on
+       ``dev``: Table IV's read/write error of every model (all finite,
+       every net's parameters on ``dev``), with each model's training
+       time and the nets' Adam steps;
+    3. each net trained on ``dev`` on ``tests/test_ml.py``'s radial task
+       for its 80 epochs must pass its bar (validation
+       accuracy > 0.75) and predict what the same weights predict on the
+       CPU in float64 (``atol=1e-5``; on the card float32 with torch's
+       default TF32 settings).
+    """
+    import torch
+    from repro_torch.core.ml import gbdt, nets, train
+    prev_tf32 = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+    # torch's defaults (an earlier phase turns both off)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        train.get_default_models(cache_dir=cache_dir, seed=0, force=True)
+        assets_s = time.perf_counter() - t0
+        same = {op: (Path(cache_dir) / f"gbdt_{op}_s0.npz").read_bytes()
+                == (gbdt.ASSETS / f"gbdt_{op}_s0.npz").read_bytes()
+                for op in ("read", "write")}
+        gate(all(same.values()),
+             f"regenerated GBDT pair differs from the assets: {same}")
+
+        log = _TrainerLog(dev)
+        t0 = time.perf_counter()
+        with log:
+            reports = train.train_all_models(reps=reps,
+                                             duration_s=duration_s,
+                                             seed=seed, device=dev)
+        table_s = time.perf_counter() - t0
+        per_model = log.by_model()
+        table = {name: {"read_error": r.read_error,
+                        "write_error": r.write_error, **per_model[name]}
+                 for name, r in reports.items()}
+        gate(all(np.isfinite([r.read_error, r.write_error]).all()
+                 for r in reports.values()), "a Table IV error is not finite")
+        for name in ("fcnn", "rnn", "tcn"):
+            gate(table[name]["param_devices"] == [str(dev)],
+                 f"{name} trained on {table[name]['param_devices']}")
+
+        X, y = _radial_data()
+        radial = {}
+        for arch_cls in (nets.FCNN, nets.VanillaRNN, nets.TCN):
+            t0 = time.perf_counter()
+            m = nets.train_net(arch_cls(X.shape[1]), X[:2400], y[:2400],
+                               X[2400:], y[2400:], epochs=80,
+                               device=dev)
+            sync(dev)
+            s = time.perf_counter() - t0
+            acc = float((m.predict(X[2400:]) == y[2400:]).mean())
+            # the same weights' forward on the CPU in float64 (torch's
+            # float32 one there can drift past 1e-5 on a first call)
+            on_cpu = arch_cls(X.shape[1])
+            on_cpu.load_state_dict({k: v.cpu() for k, v in
+                                    m.module.state_dict().items()})
+            Z = (X.astype(np.float64) - m.mu) / m.sigma
+            with torch.no_grad():
+                want = torch.sigmoid(on_cpu.double()(torch.from_numpy(Z)))
+            err = float(np.abs(m.predict_proba(X) - want.numpy()).max())
+            devices = sorted({str(p.device) for p in m.module.parameters()})
+            gate(acc > 0.75, f"{arch_cls.name} radial accuracy {acc}")
+            gate(err <= 1e-5, f"{arch_cls.name} differs from its CPU "
+                              f"forward by {err}")
+            gate(devices == [str(dev)], f"{arch_cls.name} on {devices}")
+            radial[arch_cls.name] = {"accuracy": acc, "max_abs_err_cpu": err,
+                                     "adam_steps": m.steps, "s": s,
+                                     "ms_per_step": 1e3 * s / m.steps}
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev_tf32
+    return {"phase": "ml", "device": str(dev),
+            "default_models": {"reps": 32, "duration_s": 60.0, "seed": 0,
+                               "s": assets_s, "byte_equal_assets": same},
+            "table_iv": {"reps": reps, "duration_s": duration_s,
+                         "seed": seed, "s": table_s, "models": table},
+            "radial": {"epochs": 80, "bar": 0.75, "nets": radial}}
+
+
 def kernel_line(phases: Dict[str, Dict], launches: Dict[str, int]) -> Dict:
     """One row per kernel: ``phases[name]`` holds its comparison with the
     plain version and its times, ``launches[name]`` its launches on the
@@ -1380,6 +1552,13 @@ def main() -> int:
                            max_new=64, cache_len=1024, profile_steps=32,
                            seed=7)
     emit(serve)
+
+    # CARAT's models: the production pair regenerated, Table IV with the
+    # nets on the card, the reference's bar for the nets
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="ml_cache_", dir=build) as cache:
+        emit(phase_ml(dev, cache, reps=16, duration_s=60.0, seed=0))
 
     emit(kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,

@@ -493,3 +493,19 @@ class Simulation:
                              for c, s in zip(self.clients, start_write)],
         )
 
+
+
+def run_static(
+    workload: WorkloadSpec,
+    config: ClientConfig,
+    duration_s: float = 20.0,
+    params: Optional[PFSParams] = None,
+    seed: int = 0,
+    backend: str = "soa-torch",
+    device: DeviceLike = None,
+) -> float:
+    """Mean application throughput (bytes/s) of one client under one config."""
+    sim = Simulation([workload], params=params, configs=[config], seed=seed,
+                     backend=backend, device=device)
+    res = sim.run(duration_s)
+    return res.client_mean_throughput(0)

@@ -169,3 +169,35 @@ def test_gbdt_onchip_load_counts():
     assert grid["wavefronts_simple"] == 4096 * 2 * 184 * 34
     write = chip_smoke.gbdt_logits_onchip(63, 22, 223, 5)
     assert write["chain_trees"] == 14
+
+
+def test_ml_phase_on_cpu(tmp_path):
+    """The ``ml`` phase with the nets on the CPU: the full production
+    protocol regenerates the committed GBDT pair byte for byte, a small
+    Table IV comes back with every model's time, and each net passes the
+    radial bar (on one torch thread, as ``tests/test_torch_ml.py`` trains
+    the nets)."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        ml = chip_smoke.phase_ml(CPU, str(tmp_path), reps=2,
+                                 duration_s=20.0, seed=0)
+    finally:
+        torch.set_num_threads(before)
+    assert ml["default_models"]["byte_equal_assets"] == {"read": True,
+                                                         "write": True}
+    table = ml["table_iv"]["models"]
+    assert list(table) == ["svm", "fcnn", "rnn", "tcn", "gbdt"]
+    for name, row in table.items():
+        assert 0.0 <= row["read_error"] <= 1.0 and row["train_s"] > 0.0
+        assert ("adam_steps" in row) == (name in ("fcnn", "rnn", "tcn"))
+    for name in ("fcnn", "rnn", "tcn"):
+        assert table[name]["param_devices"] == ["cpu"]
+        assert table[name]["ms_per_step"] > 0.0
+    radial = ml["radial"]["nets"]
+    assert set(radial) == {"fcnn", "rnn", "tcn"}
+    for row in radial.values():
+        assert row["accuracy"] > 0.75 and row["max_abs_err_cpu"] < 1e-6
+    # the trainers are restored after the phase
+    from repro_torch.core.ml import nets, train
+    assert train.train_net is nets.train_net

@@ -1,5 +1,5 @@
-"""The port on a CUDA device: kernels, fleet, CARAT loop and the sharded
-runtime.
+"""The port on a CUDA device: kernels, fleet, CARAT loop, the sharded
+runtime and CARAT's nets.
 
 Every test here is marked ``cuda`` and skips without a CUDA device. On a
 card each one asserts that the kernel it covers actually launched (its
@@ -19,6 +19,7 @@ import torch
 from repro_torch.config import CaratConfig
 from repro_torch.configs.carat_defaults import SPACES
 from repro_torch.core.ml.gbdt import ObliviousGBDT, default_models
+from repro_torch.core.ml.nets import FCNN, TCN, VanillaRNN, train_net
 from repro_torch.core.policies.carat import CaratPolicy
 from repro_torch.kernels.gbdt_infer import kernel
 from repro_torch.kernels.gbdt_infer.kernel import gbdt_grid_logits
@@ -443,3 +444,36 @@ def test_kernels_in_a_cuda_graph(dev):
     assert np.array_equal(_bits(logits.cpu().numpy()),
                           _bits(w.decision_function(X1)))
     assert torch.equal(grid, gbdt_grid_logits_ref(*grid_args))
+
+
+# ------------------------------------------------------------ CARAT's nets
+@pytest.mark.parametrize("arch_cls", [FCNN, VanillaRNN, TCN],
+                         ids=["FCNN", "VanillaRNN", "TCN"])
+def test_train_net_on_cuda_matches_cpu_forward(dev, arch_cls):
+    """A few epochs on the card (the default device): the parameters stay
+    there, and ``predict_proba`` equals the same weights' CPU forward at
+    ``atol=1e-5`` with cuDNN's TF32 on, as torch leaves it by default (the
+    TCN's convolution must not run through TF32). The CPU forward runs in
+    float64: torch's float32 one on the CPU has drifted past ``1e-5`` on
+    its first call in a process that ran the other tests here, while the
+    card's stayed within ``2e-7`` of float64."""
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(1500, 22)).astype(np.float32)
+    y = (X[:, 0] ** 2 + X[:, 1] ** 2 > 1.4).astype(np.int32)
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        m = train_net(arch_cls(22), X[:1200], y[:1200], X[1200:], y[1200:],
+                      epochs=5)
+        got = m.predict_proba(X)
+    finally:
+        torch.backends.cudnn.allow_tf32 = before
+    assert m.steps > 0
+    assert {p.device.type for p in m.module.parameters()} == {"cuda"}
+    on_cpu = arch_cls(22)
+    on_cpu.load_state_dict({k: v.cpu()
+                            for k, v in m.module.state_dict().items()})
+    Z = (X.astype(np.float64) - m.mu) / m.sigma
+    with torch.no_grad():
+        want = torch.sigmoid(on_cpu.double()(torch.from_numpy(Z))).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)

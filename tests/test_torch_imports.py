@@ -67,3 +67,43 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
         for line in proc.stdout.splitlines():
             assert '"ok"' not in line
             json.loads(line)   # whatever it printed is a phase line
+
+
+def test_core_reexports_the_references_names():
+    """``repro_torch.core`` exports the reference's names, each the object
+    of the submodule that defines it."""
+    import importlib
+
+    import repro.core
+    import repro_torch.core as core
+    assert core.__all__ == repro.core.__all__
+    subs = [importlib.import_module(f"repro_torch.core.{m}") for m in
+            ("policy", "metrics", "snapshot", "rpc_tuner", "cache_tuner",
+             "controller", "policies")]
+    for name in core.__all__:
+        owners = [m for m in subs if name in vars(m)]
+        assert owners and getattr(core, name) is vars(owners[0])[name]
+    assert set(core.__all__) <= set(dir(core))
+    try:
+        core.no_such_name
+    except AttributeError as e:
+        assert "no_such_name" in str(e)
+    else:
+        raise AssertionError("a missing name must raise AttributeError")
+
+
+def test_kernel_import_leaves_the_policy_stack_unloaded():
+    """The re-exports load lazily: importing the GBDT kernels, or the model
+    package, loads no policy (the policy stack imports the kernels)."""
+    proc = _run(textwrap.dedent("""
+        import sys
+        import repro_torch.kernels.gbdt_infer
+        import repro_torch.core.ml
+        print(sorted(m for m in sys.modules
+                     if m.startswith(("repro_torch.core.policies",
+                                      "repro_torch.core.ml.dataset"))))
+        from repro_torch.core import CaratPolicy  # noqa: F401
+        print("repro_torch.core.policies.carat" in sys.modules)
+    """))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:2] == ["[]", "True"]
