@@ -17,7 +17,12 @@ paths:
   ``ShardedDeviceFleet``) against the single-device fleet; and the
   4096-client CARAT loop under the sharded runtime's bus, bit-identical
   to ``Simulation.run`` on host ``soa`` with both GBDT kernels
-  launched, then with the fleet on the card;
+  launched, then with the fleet on the card; and CARAT's multi-process
+  deployment, 1024 clients on the ``scalar`` backend as 4 spawned
+  worker processes over pipes (``ProcessRuntime``, telemetry on), the
+  parent scoring each probe batch on the card and each worker its
+  bootstrap picks, bit-identical to one process, then again with a
+  worker killed and restored from its snapshot;
 * the LM serving path at granite-3-2b's full width and depth: the
   forward against token-by-token decode in float32 (the attention
   kernels on every layer), then a bfloat16 prefill of 4 x 2048 tokens
@@ -29,8 +34,9 @@ paths:
 
 Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
-launches (the GBDT kernels': the ``carat`` run's plus both sharded
-CARAT runs') and times, and the last line is
+launches (the GBDT kernels': the ``carat`` run's, both sharded CARAT
+runs' and the first process run's, its workers' ``gbdt_logits`` calls
+included) and times, and the last line is
 ``{"ok": true, "device": {...}}``.
 
 Usage (one CUDA device; imports nothing of JAX or of ``repro``)::
@@ -45,6 +51,7 @@ from __future__ import annotations
 import hashlib
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
@@ -506,11 +513,13 @@ class _Recorder(_Timed):
         return probs
 
 
-def _carat_sim(dev, models, n: int, seed: int, node_size: int,
-               flip_at: float, backend: str = "soa-torch"):
-    """The CARAT scenario (the policy scoring on ``dev``, the fleet on
-    ``backend``), with timers around the policy step, both scorers and,
-    on ``soa-torch``, the fleet step and the host syncs."""
+def _carat_scenario(dev, models, n: int, seed: int, node_size: int,
+                    flip_at: float, backend: str = "soa-torch"):
+    """The CARAT scenario: ``n`` clients of ``WL_CYCLE`` in nodes of
+    ``node_size``, each flipping its op direction at ``flip_at``, the
+    fleet on ``backend`` and ``CaratPolicy`` scoring on ``dev``. Returns
+    the simulation and the policy, not yet attached (the policy's shells
+    are wired when it is)."""
     from repro_torch.config import CaratConfig
     from repro_torch.configs.carat_defaults import SPACES
     from repro_torch.core.policies.carat import CaratPolicy
@@ -523,7 +532,16 @@ def _carat_sim(dev, models, n: int, seed: int, node_size: int,
         c.client_id: _Flip(get_workload(nm), get_workload(OP_FLIP[nm]),
                            flip_at)
         for c, nm in zip(sim.clients, names)}))
-    policy = CaratPolicy(SPACES, models, CaratConfig(), device=dev)
+    return sim, CaratPolicy(SPACES, models, CaratConfig(), device=dev)
+
+
+def _carat_sim(dev, models, n: int, seed: int, node_size: int,
+               flip_at: float, backend: str = "soa-torch"):
+    """The CARAT scenario, attached, with timers around the policy step,
+    both scorers and, on ``soa-torch``, the fleet step and the host
+    syncs."""
+    sim, policy = _carat_scenario(dev, models, n, seed, node_size, flip_at,
+                                  backend)
     timers = {}
     for op in list(policy.tuner.grid_models):
         timers[f"grid_scorer_{op}"] = policy.tuner.grid_models[op] = \
@@ -893,6 +911,195 @@ def phase_sharded_carat(dev, n: int, intervals: int, seed: int,
             "actuations": carat["actuations"]}
     return out
 
+
+# the spans of sharded CARAT's interval the process phase reads from its
+# collector: the workers' policy halves, plan and commit, the parent's
+# decision, resolve and stage-2 round
+PROCESS_SPANS = ("policy.observe", "policy.decide", "policy.actuate",
+                 "policy.stage2", "plan", "resolve", "commit")
+
+
+def _span_ms(collector, intervals: int) -> Dict[str, Dict[str, float]]:
+    """Each span of ``PROCESS_SPANS`` in ms per interval, per telemetry
+    source (``coord`` and the workers ``w0``, ``w1``, ...)."""
+    out: Dict[str, Dict[str, float]] = {name: {} for name in PROCESS_SPANS}
+    for batch in collector.batches:
+        for s in batch.spans:
+            if s.name in out:
+                row = out[s.name]
+                row[batch.source] = row.get(batch.source, 0.0) + s.dur
+    return {name: {src: sec * 1e3 / intervals
+                   for src, sec in sorted(row.items())}
+            for name, row in out.items()}
+
+
+def _worker_rpcs(collector, intervals: int) -> Dict[str, List[float]]:
+    """Per worker: its bus round trips per interval and their ms per
+    interval, from the ``bus.rpc_ms`` histogram (0.1 ms buckets) of its
+    last metrics snapshot; parked ``wait`` calls are not in it."""
+    out = {}
+    for src, m in sorted(collector.metrics().items()):
+        hist = m.get("hists", {}).get("bus.rpc_ms", {})
+        if src.startswith("w"):
+            out[src] = [sum(hist.values()) / intervals,
+                        sum(k * v for k, v in hist.items()) / intervals]
+    return out
+
+
+def _first_plan_s(collector, t0: float) -> Dict[str, float]:
+    """Per worker: when its first ``plan`` span started, in seconds after
+    ``t0`` on the parent's clock (the worker's offset applied)."""
+    first: Dict[str, float] = {}
+    for b in collector.batches:
+        for s in b.spans:
+            if s.name == "plan" and b.source.startswith("w"):
+                at = s.t0 + b.clock_offset_s - t0
+                first[b.source] = min(first.get(b.source, at), at)
+    return dict(sorted(first.items()))
+
+
+def _recover_s(collector, kill_at: int) -> float:
+    """How much longer the interval of a kill took than the median
+    interval, from the gaps between the parent's ``resolve`` spans (one
+    per interval): the kill, the respawn, the restore and the replay."""
+    t0s = sorted(s.t0 for b in collector.batches if b.source == "coord"
+                 for s in b.spans if s.name == "resolve")
+    gaps = np.diff(t0s)
+    return float(gaps[kill_at - 1] - np.median(np.delete(gaps, kill_at - 1)))
+
+
+def _worker_counter(collector, name: str) -> float:
+    """A counter summed over the workers' last metrics snapshots."""
+    return sum(m["counters"].get(name, 0.0)
+               for src, m in collector.metrics().items()
+               if src.startswith("w"))
+
+
+def phase_process_carat(dev, n: int, intervals: int, seed: int,
+                        node_size: int, flip_at: float, n_shards: int,
+                        kill_at: int, flight_dir: str) -> Dict:
+    """The ``carat`` scenario on the ``scalar`` backend as a fleet of
+    spawned worker processes (``ProcessRuntime``, sync mode, pipes,
+    telemetry on), the policy scoring on ``dev`` in every process: (a)
+    ``Simulation.run`` in one process, (b) ``n_shards`` workers, (c) the
+    same with shard 1 killed at ``kill_at`` and restored from its
+    snapshot (every 2 intervals), a flight dump under ``flight_dir``.
+    (b) and (c) must equal (a) bit for bit; the parent's
+    ``gbdt_grid_logits`` must launch during (b) (its counters are zeroed
+    just before and read just after); on the card, the workers'
+    ``gbdt_logits`` launches in (b) (their own counters, fresh in each
+    spawned process, sent back in their reports) must equal (a)'s
+    bootstrap picks, and so must their ``carat.bootstrap`` telemetry
+    counters; (c) must spawn exactly one worker more than (b), restored
+    from a snapshot, and leave a flight dump of the killed one."""
+    from repro_torch.core.ml.gbdt import default_models
+    from repro_torch.core.runtime.telemetry import read_dump
+    from repro_torch.core.runtime.transport import KillShard, ProcessRuntime
+    from repro_torch.kernels.gbdt_infer import kernel
+    m_read, m_write = default_models()
+    models = {"read": m_read, "write": m_write}
+    duration = intervals * 0.5
+    out: Dict = {"phase": "process_carat", "clients": n,
+                 "node_size": node_size, "shards": n_shards,
+                 "intervals": intervals, "flip_at_s": flip_at,
+                 "backend": "scalar", "transport": "pipe"}
+
+    def scenario():
+        sim, policy = _carat_scenario(dev, models, n, seed, node_size,
+                                      flip_at, backend="scalar")
+        sim.attach_policy(policy)
+        return sim, policy
+
+    sim_a, pol_a = scenario()
+    # the size of what each worker unpickles at start-up
+    out["sim_pickle_bytes"] = len(pickle.dumps(sim_a))
+    t0 = time.perf_counter()
+    res_a = sim_a.run(duration)
+    sync(dev)
+    out["a_ms_per_interval"] = (time.perf_counter() - t0) * 1e3 / intervals
+    sig_a = _signature(sim_a, pol_a, res_a)
+    boots_a = _actuation_kinds(pol_a).get("bootstrap", 0)
+    out["a"] = {"signature": _digest(sig_a),
+                "decision_count": pol_a.decision_count,
+                "actuations": _actuation_kinds(pol_a)}
+    gate(boots_a > 0, "the scenario took no bootstrap pick")
+
+    for key, events in (("b", ()), ("c", (KillShard(kill_at, 1),))):
+        sim, policy = scenario()
+        prt = ProcessRuntime(sim, mode="sync", transport="pipe",
+                             n_shards=n_shards, events=events,
+                             snapshot_every=2 if events else 1,
+                             telemetry=True,
+                             flight_dir=flight_dir if events else None)
+        kernel.reset_launches()
+        t0 = time.perf_counter()
+        res = prt.run(duration)
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = dict(kernel.launches)
+        sig = _signature(sim, policy, res)
+        names = ("cache limits", "decisions", "throughput series",
+                 "read bytes", "write bytes")
+        for name, a, b in zip(names, sig_a, sig):
+            gate(a == b, f"process CARAT ({key}): {name} differ from "
+                         f"Simulation.run")
+        col = prt.telemetry
+        stats = prt.stats()
+        # the parent's first resolve waits for every worker's first plan:
+        # before it, the workers start (spawn, imports, the sim's unpickle
+        # and each CUDA context); after it, the fleet steps
+        first = min(s.t0 for b in col.batches if b.source == "coord"
+                    for s in b.spans if s.name == "resolve")
+        run = {"signature": _digest(sig), "identical_to_a": True,
+               "decision_count": policy.decision_count,
+               "ms_per_interval": wall * 1e3 / intervals,
+               "startup_s": first - t0,
+               "steady_ms_per_interval":
+                   (t0 + wall - first) * 1e3 / intervals,
+               "spawns": len(prt.spawns), "parent_launches": launches,
+               "worker_launches": dict(prt.worker_launches),
+               "worker_first_plan_s": _first_plan_s(col, t0),
+               "worker_rpcs_and_ms_per_interval": _worker_rpcs(
+                   col, intervals),
+               "worker_bootstrap_picks": _worker_counter(
+                   col, "carat.bootstrap"),
+               "bus": {k: stats[k] for k in ("published", "consumed",
+                                             "dropped_stale",
+                                             "max_staleness_seen")},
+               "telemetry_sources": col.sources(),
+               "telemetry_dropped": col.dropped(),
+               "span_ms_per_interval": _span_ms(col, intervals)}
+        if events:
+            run["recover_s"] = _recover_s(col, kill_at)
+            run["restored_from_interval"] = [
+                at for _, at in prt.spawns if at is not None]
+        out[key] = run
+    b, c = out["b"], out["c"]
+    if dev.type == "cuda":
+        # (on the CPU the wrappers run their plain versions: no launches)
+        gate(b["parent_launches"]["gbdt_grid_logits"] > 0,
+             "the parent's bus_decide never launched gbdt_grid_logits")
+        gate(b["worker_launches"].get("gbdt_logits", 0) == boots_a,
+             f"the workers launched gbdt_logits "
+             f"{b['worker_launches'].get('gbdt_logits', 0)} times, the "
+             f"single process took {boots_a} bootstrap picks")
+    gate(b["spawns"] == n_shards, f"(b) spawned {b['spawns']} workers")
+    gate(b["worker_bootstrap_picks"] == boots_a,
+         f"the workers counted {b['worker_bootstrap_picks']} bootstrap "
+         f"picks in their telemetry, the single process took {boots_a}")
+    gate(c["spawns"] == n_shards + 1,
+         f"(c) spawned {c['spawns']} workers, not one respawn")
+    gate(len(c["restored_from_interval"]) == 1,
+         "(c)'s respawned worker did not restore from a snapshot")
+    dumps = [p for p in os.listdir(flight_dir) if "KillShard" in p]
+    gate(len(dumps) == 1, f"(c) left flight dumps {dumps}")
+    dump = read_dump(os.path.join(flight_dir, dumps[0]))
+    gate(dump["source"] == "w1" and len(dump["spans"]) > 0,
+         "the flight dump of the killed worker is empty")
+    c["flight_dump"] = {"file": dumps[0], "spans": len(dump["spans"]),
+                        "counters": len(dump["counters"])}
+    out["bootstrap_picks"] = boots_a
+    return out
 
 # ------------------------------------------------------------ LM serving path
 def _generator(dev, seed: int):
@@ -1525,10 +1732,23 @@ def main() -> int:
     sharded = phase_sharded_carat(dev, 4096, 20, seed=0, node_size=16,
                                   flip_at=5.0, n_shards=4, carat=carat)
     emit(sharded)
-    # the GBDT kernels' launches: the carat path's and both sharded runs'
+    # CARAT's multi-process deployment: spawned workers on the scalar
+    # backend, each scoring its bootstrap picks on the card
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="flight_", dir=build) as flight:
+        process = phase_process_carat(dev, 1024, 20, seed=0, node_size=16,
+                                      flip_at=5.0, n_shards=4, kill_at=10,
+                                      flight_dir=flight)
+    emit(process)
+    # the GBDT kernels' launches: the carat path's, both sharded runs' and
+    # the process run (b)'s: the parent's, and the workers' (their own
+    # counters, sent back in their reports)
     gbdt_launches = {name: carat["launches"][name]
                      + sharded["b"]["launches"][name]
                      + sharded["c"]["launches"][name]
+                     + process["b"]["parent_launches"][name]
+                     + process["b"]["worker_launches"].get(name, 0)
                      for name in carat["launches"]}
 
     # the LM serving path: granite-3-2b at full width and depth
@@ -1555,8 +1775,6 @@ def main() -> int:
 
     # CARAT's models: the production pair regenerated, Table IV with the
     # nets on the card, the reference's bar for the nets
-    build = ROOT / "build"
-    build.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="ml_cache_", dir=build) as cache:
         emit(phase_ml(dev, cache, reps=16, duration_s=60.0, seed=0))
 

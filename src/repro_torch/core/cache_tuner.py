@@ -50,6 +50,18 @@ class CacheDemand:
     #                              any non-negative scale (raw volume is
     #                              fine) — normalized inside the allocator
 
+    # wire round-trip contract (repro_torch.core.runtime.transport.wire):
+    # the stage-2 demand form a bus payload may carry across processes
+    def to_wire(self) -> tuple:
+        return (int(self.client_id), bool(self.active),
+                float(self.peak_cache_bytes),
+                float(self.peak_inflight_bytes),
+                float(self.write_rpc_share))
+
+    @classmethod
+    def from_wire(cls, data: tuple) -> "CacheDemand":
+        return cls(*data)
+
 
 def cache_allocation(
     demands: List[CacheDemand],

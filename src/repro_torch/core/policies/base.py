@@ -63,8 +63,8 @@ declares what the policy needs:
   cross-shard budget trading ride on it.
 
 The split methods receive/return ``(client_id, payload)`` pairs, never
-client objects, so the same protocol can back an out-of-process
-transport later. The defaults decompose the base lifecycle, so a simple
+client objects, so the same protocol backs the out-of-process
+transports (``repro_torch.core.runtime.transport``). The defaults decompose the base lifecycle, so a simple
 policy gets sharded execution for free.
 """
 from __future__ import annotations

@@ -17,6 +17,17 @@ policies import the runtime's neighbours, and an eager
 ``from .sharded import`` here would close an import cycle back through
 ``repro_torch.storage.sim``. Lazy resolution keeps this package's
 import side-effect free.
+
+The ``transport`` subpackage carries the same bus protocol across
+process and host boundaries: :class:`~repro_torch.core.runtime.transport.
+MultiprocessBus` (pipes), :class:`~repro_torch.core.runtime.transport.
+SocketBus` (loopback/remote TCP), and :class:`~repro_torch.core.runtime.
+transport.ProcessRuntime` — the spawn/join worker lifecycle with
+snapshot/restore and elastic repartitioning. The ``telemetry``
+subpackage is the observability layer: spans/counters into per-process
+ring buffers, Perfetto export, and the crash flight recorder. Both
+resolve lazily too (``repro_torch.telemetry`` imports the recorder
+directly).
 """
 import importlib
 
@@ -36,8 +47,11 @@ __all__ = list(_EXPORTS)
 def __getattr__(name):
     if name in _EXPORTS:
         return getattr(importlib.import_module(_EXPORTS[name]), name)
+    if name in ("transport", "telemetry"):
+        return importlib.import_module(f"repro_torch.core.runtime.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def __dir__():
-    return sorted(set(globals()) | set(_EXPORTS))
+    return sorted(set(globals()) | set(_EXPORTS)
+                  | {"transport", "telemetry"})

@@ -27,11 +27,13 @@ The bus records the worst staleness it ever *delivered*
 a lock + per-topic deques, with a condition variable so a coordinator
 thread can sleep until traffic arrives. It is safe for the sync
 round-robin scheduler (single thread, zero contention) and the async
-threaded scheduler alike. Payloads are ``(client_id, data)``-shaped —
-no live client objects, locks, or controller shells cross the bus — so
-a cross-process transport can implement the same four methods later
-(the reference package has pipe and socket transports; they are not
-ported yet).
+threaded scheduler alike. The cross-process transports
+(``repro_torch.core.runtime.transport``: :class:`MultiprocessBus` over
+pipes, :class:`SocketBus` over length-prefixed frames) implement the
+same four methods against a hub-side ``InProcessBus`` store, sharing
+this module's :class:`BusAccounting` semantics; payloads are
+``(client_id, data)``-shaped and wire-pure (``transport.wire``) — no
+live client objects, locks, or controller shells cross the bus.
 """
 from __future__ import annotations
 
@@ -83,8 +85,11 @@ class BusAccounting:
     ``consumed`` counters, ``dropped_stale`` (messages a bounded
     consume refused as too old), and ``max_staleness_seen`` (the worst
     staleness ever *delivered*). :class:`InProcessBus` mixes it in
-    directly; a transport that keeps an ``InProcessBus`` store on a hub
-    and forwards its :meth:`stats` reads identical accounting.
+    directly; the cross-process transports keep an ``InProcessBus``
+    store on the hub side and forward its :meth:`stats`, so a fleet
+    reads identical accounting whatever transport carries it
+    (``tests/test_torch_transport.py`` asserts this counter for
+    counter).
     """
 
     def _init_accounting(self) -> None:

@@ -70,9 +70,10 @@ Where the fleet steps:
 
 Payloads are id-keyed and object-free on the bus — CARAT's tuner RNG
 crosses as serialized stream state inside the observation/decision
-messages — so the same protocol can run over a cross-process transport
-(the reference package's pipe and socket transports are not ported
-yet).
+messages — so the same protocol runs unchanged over the cross-process
+and cross-host transports in ``repro_torch.core.runtime.transport``
+(:class:`MultiprocessBus` pipes, :class:`SocketBus` TCP frames, and the
+spawn/join :class:`ProcessRuntime` worker lifecycle).
 """
 from __future__ import annotations
 

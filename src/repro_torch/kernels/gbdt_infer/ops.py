@@ -6,6 +6,13 @@ cross-product rows through ``gbdt_logits``; :class:`GridGBDTScorer` is
 the fleet-tuning entry point, scoring a whole node's clients against
 the static candidate grid through ``gbdt_grid_logits``.
 
+Both scorers pickle as their host model (plus the grid) and the *name*
+of their device, and repack on that device when loaded: a pickle of a
+scorer — of a simulation with a CARAT policy, or of a shard snapshot —
+carries no torch storage, copies nothing back from the device, and
+loads in another process (a spawned shard worker) onto the device the
+policy names there.
+
 Every path returns probabilities **bit-identical** to
 ``ObliviousGBDT.predict_proba``: the kernels (and their plain versions
 on the CPU) reproduce ``decision_function``'s float32 summation order,
@@ -75,7 +82,12 @@ class GBDTScorer:
     (the twin of the reference's ``PallasGBDTScorer``)."""
 
     def __init__(self, model: ObliviousGBDT, device: DeviceLike = None):
+        self.model = model
         self.packed = pack_gbdt(model, device)
+
+    def __reduce__(self):
+        # the host model and the device's name, repacked on load
+        return (GBDTScorer, (self.model, str(self.packed.device)))
 
     def predict_proba(self, X: np.ndarray) -> np.ndarray:
         return gbdt_predict_proba(self.packed, X)
@@ -134,6 +146,11 @@ class GridGBDTScorer:
         self.thr = torch.as_tensor(thr.reshape(t, d), device=dev)
         self.leaf_flat = torch.as_tensor(
             model.leaf.astype(np.float32).ravel(), device=dev)
+
+    def __reduce__(self):
+        # the host model, the grid and the device's name; the candidate
+        # partials are recomputed on load (NumPy, deterministic)
+        return (GridGBDTScorer, (self.model, self.theta, str(self.device)))
 
     @property
     def n_candidates(self) -> int:

@@ -60,6 +60,18 @@ class ChannelDemand:
     def byte_rate(self) -> float:
         return self.rpc_rate * self.rpc_pages * PAGE_SIZE
 
+    # wire round-trip contract (repro_torch.core.runtime.transport.wire):
+    # a demand echo crossing a process/host bus boundary travels as this
+    # plain field tuple, never as a pickled live object graph
+    def to_wire(self) -> tuple:
+        return (int(self.client_id), int(self.ost), self.op,
+                float(self.rpc_rate), float(self.rpc_pages),
+                float(self.window))
+
+    @classmethod
+    def from_wire(cls, data: tuple) -> "ChannelDemand":
+        return cls(*data)
+
 
 @dataclass
 class _OpPlan:

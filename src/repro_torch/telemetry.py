@@ -1,54 +1,13 @@
-"""The two telemetry names the core and the runtime import: :func:`perf_s`
-and :func:`active`.
+"""The telemetry names the core and the runtime import: :func:`perf_s`,
+:func:`active` and :class:`NullRecorder`, re-exported from
+:mod:`repro_torch.core.runtime.telemetry`.
 
-The full telemetry subsystem (rings, exporters, flight recorder) is not
-ported yet, so :func:`active` always returns the disabled recorder,
-whose every operation is a constant-time no-op.
+With no recorder installed, :func:`active` returns the shared disabled
+recorder, whose every operation is a constant-time no-op; a process
+that installs one (``telemetry.enable()``, ``ProcessRuntime(telemetry=
+True)``) records the spans and counters of the instrumented modules.
 """
-from __future__ import annotations
+from repro_torch.core.runtime.telemetry.clock import perf_s
+from repro_torch.core.runtime.telemetry.recorder import NullRecorder, active
 
-import time
-
-
-def perf_s() -> float:
-    """Monotonic seconds (``time.perf_counter``) — process-local origin."""
-    return time.perf_counter()
-
-
-class _NullSpan:
-    __slots__ = ()
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        return None
-
-
-_NULL_SPAN = _NullSpan()
-
-
-class NullRecorder:
-    """Disabled recorder: spans, counters, histograms and the interval
-mark do nothing."""
-
-    enabled = False
-
-    def span(self, name: str, cat: str = "") -> _NullSpan:
-        return _NULL_SPAN
-
-    def count(self, name: str, value: float = 1.0) -> None:
-        pass
-
-    def hist(self, name: str, value: float) -> None:
-        pass
-
-    def set_interval(self, k: int) -> None:
-        pass
-
-
-_NULL = NullRecorder()
-
-
-def active() -> NullRecorder:
-    return _NULL
+__all__ = ["NullRecorder", "active", "perf_s"]

@@ -108,6 +108,53 @@ def test_deployment_phases_on_cpu():
     assert carat["c"]["breakdown_ms_per_interval"]["fleet_step"] > 0.0
 
 
+
+def test_process_phase_on_cpu(tmp_path):
+    """The multi-process phase at a small size: 2 spawned workers on the
+    scalar backend, the policy on the CPU. Its gates hold with the plain
+    versions: (b) and (c) equal (a), the workers' bootstrap counters
+    equal (a)'s picks, (c) respawns one worker and leaves one flight
+    dump; and its lines carry every span, the bus counts and the
+    spawn counts."""
+    out = chip_smoke.phase_process_carat(
+        CPU, 32, 20, seed=0, node_size=16, flip_at=5.0, n_shards=2,
+        kill_at=10, flight_dir=str(tmp_path))
+    assert out["phase"] == "process_carat" and out["backend"] == "scalar"
+    assert out["bootstrap_picks"] == out["a"]["actuations"]["bootstrap"]
+    assert out["bootstrap_picks"] > 0 and out["a_ms_per_interval"] > 0.0
+    for key, spawns in (("b", 2), ("c", 3)):
+        run = out[key]
+        assert run["identical_to_a"]
+        assert run["signature"] == out["a"]["signature"]
+        assert run["spawns"] == spawns
+        assert run["worker_bootstrap_picks"] == out["bootstrap_picks"]
+        # on the CPU the wrappers run their plain versions: no launches
+        assert run["parent_launches"] == {"gbdt_logits": 0,
+                                          "gbdt_grid_logits": 0}
+        assert run["worker_launches"] == {"gbdt_logits": 0,
+                                          "gbdt_grid_logits": 0}
+        assert run["bus"]["published"] > 0 and run["bus"]["consumed"] > 0
+        assert run["bus"]["max_staleness_seen"] == 0
+        assert run["telemetry_sources"] == ["coord", "w0", "w1"]
+        spans = run["span_ms_per_interval"]
+        assert set(spans) == set(chip_smoke.PROCESS_SPANS)
+        for name in ("policy.observe", "policy.actuate", "plan", "commit"):
+            assert set(spans[name]) == {"w0", "w1"}, name
+        for name in ("policy.decide", "resolve"):
+            assert set(spans[name]) == {"coord"}, name
+        assert set(run["worker_first_plan_s"]) == {"w0", "w1"}
+        assert 0.0 < run["startup_s"] and run["steady_ms_per_interval"] > 0
+        for rpcs, ms in run["worker_rpcs_and_ms_per_interval"].values():
+            assert rpcs > 0 and ms > 0.0
+    assert out["sim_pickle_bytes"] > 0
+    assert "recover_s" not in out["b"] and out["c"]["recover_s"] > 0.0
+    # snapshots every 2 intervals: the kill at 10 restores from 8 or 10
+    assert out["c"]["restored_from_interval"] in ([8], [10])
+    assert out["b"]["bus"]["dropped_stale"] == 0
+    dump = out["c"]["flight_dump"]
+    assert dump["file"].startswith("flight-w1-KillShard")
+    assert dump["spans"] > 0
+
 def test_lm_phases_on_cpu():
     cfg = reduced_config(get_arch("granite-3-2b"))
     cons = chip_smoke.phase_lm_consistency(CPU, cfg, batch=2, n_tokens=6,

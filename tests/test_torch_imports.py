@@ -47,8 +47,63 @@ def test_port_imports_without_jax_or_reference():
     proc = _run(_BLOCKED_IMPORTS)
     assert proc.returncode == 0, proc.stderr
     n_modules, leaked = proc.stdout.strip().split(" ", 1)
-    assert int(n_modules) >= 56
+    assert int(n_modules) >= 70
     assert leaked == "[]"
+
+
+# the multi-process deployment's modules: telemetry, fault tolerance, the
+# wire, the pipe and socket buses and ProcessRuntime
+DEPLOYMENT_MODULES = [
+    *(f"repro_torch.core.runtime.telemetry.{m}" for m in
+      ("clock", "events", "recorder", "export", "flight", "collect")),
+    "repro_torch.core.runtime.telemetry",
+    "repro_torch.runtime.fault_tolerance", "repro_torch.runtime",
+    *(f"repro_torch.core.runtime.transport.{m}" for m in
+      ("wire", "process_bus", "socket_bus", "fleet")),
+    "repro_torch.core.runtime.transport",
+]
+
+
+def test_deployment_modules_import_first_without_jax_or_reference():
+    """Each module of the deployment imports first in a fresh
+    interpreter (no eager import cycle), with ``jax`` and the reference
+    blocked, and pulls in neither."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    block = _BLOCKED_IMPORTS.split("\nimport repro_torch\n")[0]
+    procs = {name: subprocess.Popen(
+        [sys.executable, "-c", block + textwrap.dedent(f"""
+            import {name}
+            print(sorted(m for m in sys.modules
+                         if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+        """)], cwd=REPO, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+        for name in DEPLOYMENT_MODULES}
+    for name, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        assert proc.returncode == 0, f"{name}: {err}"
+        assert out.strip() == "[]", name
+
+
+def test_runtime_exports_transport_and_telemetry_lazily():
+    """``repro_torch.core.runtime`` resolves ``transport`` and
+    ``telemetry`` on first use and loads neither when imported; the
+    ``repro_torch.telemetry`` names are the telemetry package's."""
+    proc = _run(textwrap.dedent("""
+        import sys
+        import repro_torch.core.runtime as rt
+        print(sorted(m for m in sys.modules
+                     if m.startswith("repro_torch.core.runtime.")))
+        import repro_torch.core.runtime.telemetry.recorder as rec
+        import repro_torch.core.runtime.transport.fleet as fleet
+        import repro_torch.telemetry as shim
+        print(rt.transport.ProcessRuntime is fleet.ProcessRuntime,
+              rt.telemetry.active is rec.active is shim.active,
+              shim.NullRecorder is rec.NullRecorder,
+              {"transport", "telemetry"} <= set(dir(rt)),
+              isinstance(shim.active(), rec.NullRecorder))
+    """))
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.split("\n")[:2] == ["[]", "True True True True True"]
 
 
 def test_chip_smoke_fails_without_cuda(tmp_path):
