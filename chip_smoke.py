@@ -27,6 +27,15 @@ paths:
   forward against token-by-token decode in float32 (the attention
   kernels on every layer), then a bfloat16 prefill of 4 x 2048 tokens
   and ``ServeEngine.generate`` on 8 ragged requests;
+* the LM training path with the CARAT-tuned PFS input pipeline: the
+  training launcher (reduced granite-3-2b, CARAT off and on, each
+  host's stage-1 decisions scored by ``gbdt_logits`` and equal to a
+  CPU-scored pipeline's), a restart from a checkpoint (bit-exact),
+  granite-3-2b trained at full width and depth in float32 (AdamW,
+  ``remat="dots"``, ``flash_attention`` forward on every layer with the
+  plain version's gradient), and three train steps on the card against
+  the CPU's at the peak learning rate (losses, grad norms, gradients,
+  parameters);
 * CARAT's models: the production GBDT pair regenerated under the
   paper's §IV-B protocol (byte-equal to the committed assets), Table IV
   (``train_all_models``) with the nets trained on the card, and each net
@@ -36,7 +45,10 @@ Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
 launches (the GBDT kernels': the ``carat`` run's, both sharded CARAT
 runs' and the first process run's, its workers' ``gbdt_logits`` calls
-included) and times, and the last line is
+included, and the training pipelines'; flash attention's two kernels
+as two rows: the tensor-core kernel's in the prefill, the SIMT
+kernel's in the float32 training steps, each beside its own timing)
+and times, and the last line is
 ``{"ok": true, "device": {...}}``.
 
 Usage (one CUDA device; imports nothing of JAX or of ``repro``)::
@@ -77,15 +89,18 @@ H100_SM_CLOCK_HZ = 1.98e9
 H100_SMS = 132
 
 # every CUDA kernel of the port: its source and the Pallas kernel it
-# replaces (file:line of the kernel function)
+# replaces (file:line of the kernel function). K2's source holds two
+# kernels: "flash_attention" is the bfloat16 tensor-core one (the
+# serving prefill), "flash_attention_simt" the float32 one (training)
 _GBDT_CU = "src/repro_torch/kernels/gbdt_infer/csrc/gbdt_infer.cu"
 _GBDT_PALLAS = "src/repro/kernels/gbdt_infer/kernel.py:35"
+_FA_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+_FA_PALLAS = "src/repro/kernels/flash_attention/kernel.py:36"
 KERNELS = {
     "gbdt_logits": (_GBDT_CU, _GBDT_PALLAS),
     "gbdt_grid_logits": (_GBDT_CU, _GBDT_PALLAS),
-    "flash_attention": (
-        "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu",
-        "src/repro/kernels/flash_attention/kernel.py:36"),
+    "flash_attention": (_FA_CU, _FA_PALLAS),
+    "flash_attention_simt": (_FA_CU, _FA_PALLAS),
     "decode_attention": (
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:31"),
@@ -591,10 +606,13 @@ def _profiler():
 def _device_time(prof, top: int = 0):
     """The device-side events of a stopped profiler: their summed ms (or
     None where it recorded none) and the ``top`` entries with the most
-    time (name, device ms, count)."""
+    time (name, device ms, count). A named range's device-side span
+    covers kernels counted already, and is left out."""
     from torch.autograd import DeviceType
     on_device = [e for e in prof.key_averages()
-                 if e.device_type != DeviceType.CPU]
+                 if e.device_type != DeviceType.CPU
+                 and not getattr(e, "is_user_annotation", False)
+                 and e.key not in _named_ranges()]
     busy_us = sum(e.self_device_time_total for e in on_device)
     ranked = sorted(on_device, key=lambda e: -e.self_device_time_total)
     heaviest = [[e.key[:60], e.self_device_time_total / 1e3, e.count]
@@ -1300,6 +1318,31 @@ def _attn_kernels():
     return fa, dec
 
 
+def _named_ranges() -> tuple:
+    """The port's profiler ranges: K2's backward and the AdamW update."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.train.step import UPDATE_RANGE
+    return (fa.BACKWARD_RANGE, UPDATE_RANGE)
+
+
+def _range_ms(prof, name: str, cuda: bool) -> Dict:
+    """A named range of a stopped profiler: its calls and, on the card,
+    its kernels' device ms (``device``) and its span on the device, the
+    gaps between those kernels included (``span``); on the CPU both are
+    its host ms."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.key_averages() if e.key == name]
+    host = [e for e in events if e.device_type == DeviceType.CPU]
+    calls = sum(e.count for e in host)
+    if not cuda:
+        ms = sum(e.cpu_time_total for e in host) / 1e3
+        return {"calls": calls, "device": ms, "span": ms}
+    return {"calls": calls,
+            "device": sum(e.device_time_total for e in host) / 1e3,
+            "span": sum(e.self_device_time_total for e in events
+                        if e.device_type != DeviceType.CPU) / 1e3}
+
+
 def _reset_attn_launches() -> None:
     for k in _attn_kernels():
         k.reset_launches()
@@ -1505,6 +1548,431 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
             gen["device_idle_share"] = 1.0 - (
                 busy_ms / profile_steps) / gen["tail_ms_per_step"]
     del model.decode_step
+    return out
+
+
+# ------------------------------------------------------- LM training path
+def _kernel_launches() -> Dict[str, int]:
+    """The launches of every kernel counter of the training path."""
+    from repro_torch.kernels.gbdt_infer import kernel as gbdt
+    return {**gbdt.launches, **_attn_launches()}
+
+
+def _scorer_calls(pipe) -> int:
+    """Scorer calls of a pipeline's controllers: one per stage-1 proposal
+    and one per bootstrap pick (each one ``gbdt_logits`` launch on a
+    CUDA device)."""
+    return sum(c.tuner.tune_count
+               + sum(d[1] == "bootstrap" for d in c.decisions)
+               for c in pipe.controllers)
+
+
+def _reset_kernel_launches() -> None:
+    from repro_torch.kernels.gbdt_infer import kernel as gbdt
+    gbdt.reset_launches()
+    _reset_attn_launches()
+
+
+def _train_launcher(dev, steps: int, ckpt_every: int, ckpt_root: str,
+                    models) -> Dict:
+    """(a) ``repro_torch.launch.train.main`` at the reference's defaults
+    (granite-3-2b reduced, batch 8 x seq 64, 4 hosts, 2 MiB samples as
+    the example), CARAT off then on. Gates: finite losses; the loss of
+    step 0's batch lower after the run than at step 0; K2 launched once
+    per layer per step (``remat="dots"`` keeps its output: no relaunch);
+    K1 once per scorer call of the hosts' controllers; and the
+    controllers' decisions and waits equal a CPU-scored pipeline's fed
+    the compute times the run measured."""
+    import contextlib
+    import io
+
+    import torch
+    from repro_torch.config import (CaratConfig, DataConfig, ShapeConfig,
+                                    get_arch, reduced_config)
+    from repro_torch.data import PFSDataPipeline, TokenSource, make_host_batch
+    from repro_torch.launch import train as launch
+    cfg = reduced_config(get_arch("granite-3-2b"))
+    shape = ShapeConfig("launcher", 64, 8, "train")
+    out: Dict = {"arch": cfg.name, "steps": steps, "batch": 8, "seq": 64,
+                 "hosts": 4, "sample_kb": 2048, "ckpt_every": ckpt_every,
+                 "remat": "dots"}
+    for carat in (False, True):
+        argv = ["--arch", "granite-3-2b", "--steps", str(steps), "--hosts",
+                "4", "--batch", "8", "--seq", "64", "--sample-kb", "2048",
+                "--ckpt-every", str(ckpt_every), "--device", str(dev),
+                "--ckpt-dir", os.path.join(ckpt_root,
+                                           "on" if carat else "off")]
+        printed = io.StringIO()
+        _reset_kernel_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            run = launch.main(argv + ([] if carat else ["--no-carat"]))
+        sync(dev)
+        wall = time.perf_counter() - t0
+        launches = _kernel_launches()
+        pipe = run.pipeline
+        b0 = make_host_batch(cfg, 64, 8, TokenSource(cfg.vocab_size, 0), 0)
+        with torch.no_grad():
+            held = float(run.model.loss(b0))
+        gate(bool(np.isfinite(run.losses).all()), "a launcher loss is not "
+                                                  "finite")
+        gate(held < run.losses[0], f"step 0's batch: loss {held} after the "
+             f"run, {run.losses[0]} at step 0")
+        row = {"last_line": printed.getvalue().strip().splitlines()[-1],
+               "s": wall, "losses_first_last": [run.losses[0],
+                                                run.losses[-1]],
+               "step0_batch_loss_after": held,
+               "ms_per_step": 1e3 * float(np.mean(run.compute_s)),
+               "input_wait_s": float(sum(run.waits_s)),
+               "input_wait_s_per_step": float(np.mean(run.waits_s)),
+               "pfs_MBps": pipe.throughput() / 1e6,
+               "decisions": sum(len(c.decisions) for c in pipe.controllers),
+               "scorer_calls": _scorer_calls(pipe), "launches": launches}
+        if dev.type == "cuda":
+            want = {"flash_attention": cfg.n_layers * steps,
+                    "flash_attention_tc": 0, "decode_attention": 0,
+                    "gbdt_logits": _scorer_calls(pipe),
+                    "gbdt_grid_logits": 0}
+            gate(launches == want, f"launcher (carat={carat}) launches "
+                                   f"{launches}, expected {want}")
+        if carat:
+            gate(_scorer_calls(pipe) > 0, "the controllers scored nothing")
+            cpu = PFSDataPipeline(cfg, DataConfig(sample_bytes=2048 * 1024),
+                                  n_hosts=4, carat=CaratConfig(),
+                                  models=models, device="cpu")
+            waits = [cpu.step(shape, c) for c in run.compute_s]
+            same = (waits == run.waits_s
+                    and [c.decisions for c in cpu.controllers]
+                    == [c.decisions for c in pipe.controllers])
+            gate(same, "the card-scored pipeline's decisions differ from "
+                       "the CPU-scored pipeline's")
+            row["decisions_equal_cpu_scorers"] = same
+        out["carat_on" if carat else "carat_off"] = row
+        del run
+    return out
+
+
+def _train_restart(dev) -> Dict:
+    """(b) The twin of ``tests/test_elastic_integration.py:43-71`` on
+    ``dev``: reduced h2o-danube-1.8b, 6 steps with a checkpoint at 4;
+    fresh weights and optimizer state restored from it replay steps 4
+    and 5 with the same losses (``atol=0``)."""
+    import torch
+    from repro_torch.ckpt import CheckpointManager
+    from repro_torch.config import (CheckpointConfig, ParallelConfig,
+                                    RunConfig, ShapeConfig, get_arch,
+                                    reduced_config)
+    from repro_torch.data import TokenSource, make_host_batch
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    cfg = reduced_config(get_arch("h2o-danube-1.8b"))
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    run = RunConfig(arch=cfg, shape=ShapeConfig("t", 16, 4, "train"),
+                    parallel=ParallelConfig(remat="none",
+                                            opt_state_dtype="float32"))
+    step_fn = make_train_step(model, run)
+    source = TokenSource(cfg.vocab_size, seed=3)
+    batches = [make_host_batch(cfg, 16, 4, source, i) for i in range(6)]
+    model.init(_generator(dev, 0))
+    state = TrainState.init(model.param_tree(), AdamWConfig())
+    with tempfile.TemporaryDirectory(prefix="ckpt_", dir=ROOT / "build") as d:
+        mgr = CheckpointManager(CheckpointConfig(directory=d), n_shards=3)
+        losses = []
+        for i in range(6):
+            if i == 4:
+                mgr.save(state, step=4, blocking=True)
+            state, m = step_fn(state, batches[i])
+            losses.append(float(m["loss"]))
+        model.init(_generator(dev, 99))
+        fresh = TrainState.init(model.param_tree(), AdamWConfig())
+        restored, step = mgr.restore(fresh)
+    gate(step == 4 and int(restored["step"]) == 4, "restored the wrong step")
+    replay = []
+    for i in (4, 5):
+        restored, m = step_fn(restored, batches[i])
+        replay.append(float(m["loss"]))
+    gate(replay == losses[4:6], f"restart on {dev} is not bit-exact: "
+                                f"{replay} vs {losses[4:6]}")
+    return {"arch": cfg.name, "losses": losses, "replayed": replay,
+            "bit_exact": True}
+
+
+def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
+    """(c) ``cfg`` at its published width and depth, seeded random float32
+    weights and AdamW state, ``remat="dots"``, ``batch`` x ``seq`` tokens
+    from ``TokenSource`` through ``make_train_step``, ``steps`` steps
+    after one warm-up, the CARAT-on pipeline fed each measured step time.
+    Per step: ms (to a synchronized end) and input wait. Then one more
+    step under the profiler: the AdamW update's range (``UPDATE_RANGE``
+    of ``make_train_step``) splits a step into forward+backward and the
+    update; on the card also device busy ms (idle share against the
+    timed steps' mean), the heaviest device ops, K2's device ms and the
+    device ms of its backward (the plain version's gradient).
+    Gates: loss and grad norm finite at every step, K2 once per layer
+    per step, K1 once per scorer call, one update range in the trace."""
+    import torch
+    from repro_torch.config import (CaratConfig, DataConfig, ParallelConfig,
+                                    RunConfig, ShapeConfig, TrainConfig)
+    from repro_torch.data import PFSDataPipeline, TokenSource, make_host_batch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train.step import UPDATE_RANGE
+    t0 = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    model.init(_generator(dev, 8))
+    shape = ShapeConfig("full", seq, batch, "train")
+    run = RunConfig(arch=cfg, shape=shape,
+                    parallel=ParallelConfig(remat="dots",
+                                            opt_state_dtype="float32"),
+                    train=TrainConfig(steps=steps + 2))
+    state = TrainState.init(model.param_tree(), AdamWConfig())
+    step_fn = make_train_step(model, run)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    pipe = PFSDataPipeline(cfg, DataConfig(sample_bytes=2048 * 1024),
+                           n_hosts=4, carat=CaratConfig(), models=models,
+                           device=dev)
+    source = TokenSource(cfg.vocab_size, seed=0)
+    batches = [make_host_batch(cfg, seq, batch, source, i)
+               for i in range(steps + 2)]
+    cuda = dev.type == "cuda"
+    state, _ = step_fn(state, batches[0])           # warm-up
+    sync(dev)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    _reset_kernel_launches()
+    rows, metrics = [], []
+    for i in range(1, steps + 1):
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        sync(dev)
+        step_s = time.perf_counter() - t0
+        rows.append({"ms": step_s * 1e3,
+                     "input_wait_s": pipe.step(shape, step_s)})
+        metrics.append(torch.stack([m["loss"], m["grad_norm"]]))
+    launches = _kernel_launches()
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    metrics = torch.stack(metrics).cpu().numpy()
+    gate(bool(np.isfinite(metrics).all()), "a full-width loss or grad "
+                                           "norm is not finite")
+    if cuda:
+        want = {"flash_attention": cfg.n_layers * steps,
+                "flash_attention_tc": 0, "decode_attention": 0,
+                "gbdt_logits": _scorer_calls(pipe), "gbdt_grid_logits": 0}
+        gate(launches == want, f"full-width launches {launches}, expected "
+                               f"{want}")
+    mean_ms = float(np.mean([r["ms"] for r in rows]))
+    # one more step under the profiler: the AdamW update's range gives
+    # the split of a step (on the card, the range's span on the device:
+    # its kernels and the gaps between them; on the CPU, its host time)
+    t0 = time.perf_counter()
+    with _profiler() as prof:
+        state, _ = step_fn(state, batches[steps + 1])
+        sync(dev)
+    traced_s = time.perf_counter() - t0
+    adamw_ms = _range_ms(prof, UPDATE_RANGE, cuda)
+    gate(adamw_ms["calls"] == 1 and adamw_ms["span"] > 0.0,
+         f"the traced step's update range: {adamw_ms}")
+    out = {"arch": cfg.name, "params": cfg.param_count(), "layers":
+           cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           "dtype": "float32", "remat": "dots", "batch": batch, "seq": seq,
+           "tokens_per_step": batch * seq, "steps": steps, "init_s": init_s,
+           "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
+           "float32_matmul_precision": torch.get_float32_matmul_precision(),
+           "ms_per_step": mean_ms,
+           "adamw_ms": adamw_ms["span"], "fwd_bwd_ms": mean_ms
+           - adamw_ms["span"],
+           "input_wait_s_per_step": float(np.mean([r["input_wait_s"]
+                                                   for r in rows])),
+           "tokens_per_s": batch * seq / (mean_ms / 1e3),
+           "model_tflops_per_s": 6 * cfg.param_count() * batch * seq
+           / (mean_ms / 1e3) / 1e12,
+           "peak_device_bytes": peak, "losses": metrics[:, 0].tolist(),
+           "grad_norms": metrics[:, 1].tolist(), "per_step": rows,
+           "decisions": sum(len(c.decisions) for c in pipe.controllers),
+           "scorer_calls": _scorer_calls(pipe), "launches": launches}
+    out["profiled"] = {"run": "one more step, traced",
+                       "wall_ms": traced_s * 1e3,
+                       "adamw_calls": adamw_ms["calls"]}
+    if cuda:
+        busy_ms, heaviest = _device_time(prof, top=12)
+        fa = [e for e in prof.key_averages()
+              if re.search(r"\bflash_attention(_tc)?_kernel\b", e.key)]
+        bwd = _range_ms(prof, fa_kernel.BACKWARD_RANGE, cuda)
+        out["profiled"].update({
+            "device_busy_ms": busy_ms,
+            "device_idle_share": (None if busy_ms is None
+                                  else 1.0 - busy_ms / mean_ms),
+            "adamw_device_ms": adamw_ms["device"],
+            "flash_attention_device_ms": sum(e.self_device_time_total
+                                             for e in fa) / 1e3,
+            "flash_attention_launches": sum(e.count for e in fa),
+            # the op's backward (the plain version's gradient): its
+            # kernels' device ms, its span on the device, its calls
+            "flash_attention_backward_device_ms": bwd["device"],
+            "flash_attention_backward_span_ms": bwd["span"],
+            "flash_attention_backward_calls": bwd["calls"],
+            "heaviest_device_ms": heaviest})
+    return out
+
+
+def _train_parity(dev, cfg, full_cfg, seq: int, reps: int,
+                  steps: int = 3) -> Dict:
+    """(d) ``steps`` train steps of reduced ``cfg`` on ``dev`` (K2 forward)
+    and of the port on the CPU (the plain version), from the same weights,
+    with no warm-up (``warmup_steps=0``): the first step already takes the
+    peak learning rate, so every step moves the weights. Gates: every
+    step's loss at ``rel=1e-5`` and every parameter after the last step
+    at ``atol=1e-5``, the reference's bar (``tests/test_train.py:67-70``);
+    every step's grad norm at ``rel=1e-4`` and each gradient of the first
+    step within ``1e-5`` plus ``1e-4`` of its largest element, the CPU
+    tests' bar (``tests/test_torch_train.py``: float32 cancels digits in
+    the embedding's input rows); the weights moved by more than ten times
+    ``atol``. Then K2 with its gradient at ``full_cfg``'s heads, batch 8
+    x ``seq`` (:func:`phase_flash_attention_train`)."""
+    import torch
+    from repro_torch.config import (ParallelConfig, RunConfig, ShapeConfig,
+                                    TrainConfig)
+    from repro_torch.data import TokenSource, make_host_batch
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import (AdamWConfig, TrainState, make_loss_fn,
+                                   make_train_step)
+    from repro_torch.utils.tree import tree_flatten_with_paths, tree_leaves
+    cpu = torch.device("cpu")
+    loss_rel, grad_rel, atol = 1e-5, 1e-4, 1e-5
+    run = RunConfig(arch=cfg, shape=ShapeConfig("t", 64, 8, "train"),
+                    parallel=ParallelConfig(remat="dots"),
+                    train=TrainConfig(warmup_steps=0))
+    source = TokenSource(cfg.vocab_size, 5)
+    batches = [make_host_batch(cfg, 64, 8, source, i) for i in range(steps)]
+    host = build_model(cfg, device=cpu, dtype=torch.float32)
+    host.init(torch.Generator().manual_seed(9))
+    card = build_model(cfg, device=dev, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    init = [p.detach().clone() for p in tree_leaves(host.param_tree())]
+    paths = [p for p, _ in tree_flatten_with_paths(host.param_tree())]
+    out = {}
+    for name, model in (("cpu", host), ("card", card)):
+        step_fn = make_train_step(model, run)     # the parameters trainable
+        state = TrainState.init(model.param_tree(), AdamWConfig())
+        # the first step's gradients: the step's own loss function
+        loss = make_loss_fn(model, run)(batches[0])
+        grads = [g.cpu() for g in torch.autograd.grad(
+            loss, tree_leaves(state["params"]))]
+        _reset_attn_launches()
+        metrics = []
+        for b in batches:
+            state, m = step_fn(state, b)
+            metrics.append(torch.stack([m["loss"], m["grad_norm"], m["lr"]]))
+        out[name] = {"metrics": torch.stack(metrics).cpu().numpy(),
+                     "grads": grads,
+                     "params": [p.detach().cpu()
+                                for p in tree_leaves(state["params"])],
+                     "k2": _attn_launches()["flash_attention"]}
+    got, want = out["card"], out["cpu"]
+    rel = np.abs(got["metrics"] - want["metrics"]) / np.abs(want["metrics"])
+    # each gradient's error over its bound: at most 1 passes
+    grad_ratio = {path: _max_err(a, b) / (atol + grad_rel
+                                          * float(b.abs().max()))
+                  for path, a, b in zip(paths, got["grads"], want["grads"])}
+    worst = max(grad_ratio, key=grad_ratio.get)
+    param_err = max(_max_err(a, b) for a, b in zip(got["params"],
+                                                   want["params"]))
+    moved = max(_max_err(a, b) for a, b in zip(want["params"], init))
+    gate(float(rel[:, 0].max()) <= loss_rel, f"train step losses on {dev} "
+         f"off the CPU's by {rel[:, 0].tolist()} (relative)")
+    gate(float(rel[:, 1].max()) <= grad_rel, f"train step grad norms on "
+         f"{dev} off the CPU's by {rel[:, 1].tolist()} (relative)")
+    gate(grad_ratio[worst] <= 1.0, f"the gradient of {worst} on {dev} off "
+         f"the CPU's by {grad_ratio[worst]} times its bound")
+    gate(param_err <= atol, f"parameters after {steps} steps on {dev} off "
+                            f"the CPU's by {param_err}")
+    gate(moved > 10 * atol, f"the steps moved the weights by {moved} only")
+    if dev.type == "cuda":
+        gate(got["k2"] == cfg.n_layers * steps and want["k2"] == 0,
+             f"K2 launches {got['k2']} on the card, {want['k2']} on the CPU")
+    return {"arch": cfg.name, "steps": steps, "warmup_steps": 0,
+            "lr": want["metrics"][:, 2].tolist(),
+            "losses_card": got["metrics"][:, 0].tolist(),
+            "losses_cpu": want["metrics"][:, 0].tolist(),
+            "loss_rel_err": float(rel[:, 0].max()),
+            "grad_norm_rel_err": float(rel[:, 1].max()),
+            "grad_worst": {"path": worst, "err_over_bound":
+                           grad_ratio[worst]},
+            "param_max_abs_err": param_err, "param_max_move": moved,
+            "rel": loss_rel, "grad_rel": grad_rel, "atol": atol,
+            "k2_launches_card": got["k2"],
+            "qkv_grad": phase_flash_attention_train(
+                dev, 8, full_cfg.n_heads, full_cfg.n_kv_heads,
+                full_cfg.resolved_head_dim, seq, reps)}
+
+
+def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
+                                s: int, reps: int) -> Dict:
+    """K2 on the training path: float32 (the SIMT kernel), causal, with a
+    gradient. q, k and v's gradients through K2's op against the plain
+    version's autograd on ``dev``: the backward is the plain version's,
+    so they must be equal; the forward within float32's tolerance, and
+    timed (``reps`` calls) beside its bound, the plain version's and
+    SDPA's. The kernel line's ``flash_attention_simt`` row."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = _generator(dev, 10)
+    q, k, v, grad = _randn(g, dev, torch.float32, (b, hq, s, d),
+                           (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d))
+    grads = {}
+    for name, fn in (("kernel", flash_attention),
+                     ("plain", flash_attention_ref)):
+        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        o = fn(*qkv, causal=True)
+        grads[name] = (o.detach(), torch.autograd.grad(o, qkv, grad))
+    fwd_err = _max_err(grads["kernel"][0], grads["plain"][0])
+    grad_err = max(_max_err(x, y) for x, y in zip(grads["kernel"][1],
+                                                  grads["plain"][1]))
+    gate(fwd_err <= ATOL["float32"], f"K2 forward off by {fwd_err}")
+    gate(grad_err == 0.0, f"K2's q/k/v gradients off the plain version's "
+                          f"by {grad_err}")
+    with torch.no_grad():
+        ms = time_ms(lambda: flash_attention(q, k, v), dev, reps)
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), dev, reps)
+        library_ms, note = _library_ms(dev, reps, q, k, v, is_causal=True)
+    return {"shape": [b, hq, hkv, s, d], "dtype": "float32",
+            "max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": f"scaled_dot_product_attention ({note})",
+            **bound(4 * (2 * q.numel() + k.numel() + v.numel()),
+                    4 * d * b * hq * _attn_pairs(s, s, True, 0))}
+
+
+def phase_lm_train(dev, full_cfg, launch_steps: int, ckpt_every: int,
+                   full_batch: int, full_seq: int, full_steps: int) -> Dict:
+    """The LM training path with the CARAT-tuned PFS input pipeline:
+    (a) the launcher, CARAT off and on; (b) a restart from a checkpoint,
+    bit-exact; (c) ``full_cfg`` trained at its full width and depth;
+    (d) the card's train step against the CPU's. TF32 stays off (torch's
+    default for matrix products)."""
+    import torch
+    from repro_torch.config import get_arch, reduced_config
+    from repro_torch.core.ml.train import get_default_models
+    torch.backends.cuda.matmul.allow_tf32 = False
+    m_r, m_w = get_default_models()
+    models = {"read": m_r, "write": m_w}
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out: Dict = {"phase": "lm_train", "dtype": "float32"}
+    with tempfile.TemporaryDirectory(prefix="ckpt_", dir=build) as d:
+        out["a"] = _train_launcher(dev, launch_steps, ckpt_every, d, models)
+    out["b"] = _train_restart(dev)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["c"] = _train_full(dev, full_cfg, full_batch, full_seq, full_steps,
+                           models)
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out["d"] = _train_parity(dev, reduced_config(get_arch("granite-3-2b")),
+                             full_cfg, full_seq, reps=20)
     return out
 
 
@@ -1772,17 +2240,42 @@ def main() -> int:
                            max_new=64, cache_len=1024, profile_steps=32,
                            seed=7)
     emit(serve)
+    # the serving model and its caches went with the phase's frame
+    torch.cuda.empty_cache()
+
+    # the LM training path with the CARAT-tuned PFS input pipeline: the
+    # launcher (reduced), a restart, granite-3-2b at full width and depth,
+    # the card's step against the CPU's
+    train = phase_lm_train(dev, granite, launch_steps=30, ckpt_every=10,
+                           full_batch=8, full_seq=256, full_steps=6)
+    emit(train)
+    torch.cuda.empty_cache()
+    train_runs = [train["a"]["carat_off"]["launches"],
+                  train["a"]["carat_on"]["launches"],
+                  train["c"]["launches"]]
 
     # CARAT's models: the production pair regenerated, Table IV with the
     # nets on the card, the reference's bar for the nets
     with tempfile.TemporaryDirectory(prefix="ml_cache_", dir=build) as cache:
         emit(phase_ml(dev, cache, reps=16, duration_s=60.0, seed=0))
 
+    # each kernel's launches summed over the paths that drive it: K1 and
+    # K1b on the CARAT runs and the training pipelines; K2's tensor-core
+    # kernel in the bf16 prefill, its SIMT kernel in the float32 training
+    # steps ((a) and (c); the tensor-core kernel is gated at 0 there),
+    # each row beside its own kernel's timing; K3 in generate
     emit(kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
-         "flash_attention": fa, "decode_attention": dec},
-        {**gbdt_launches,
-         "flash_attention": serve["prefill"]["launches"]["flash_attention"],
+         "flash_attention": fa,
+         "flash_attention_simt": train["d"]["qkv_grad"],
+         "decode_attention": dec},
+        {name: gbdt_launches[name] + sum(r[name] for r in train_runs)
+         for name in gbdt_launches} | {
+         "flash_attention":
+             serve["prefill"]["launches"]["flash_attention_tc"],
+         "flash_attention_simt": sum(r["flash_attention"]
+                                     - r["flash_attention_tc"]
+                                     for r in train_runs),
          "decode_attention":
              serve["generate"]["launches"]["decode_attention"]}))
     emit({"ok": True, "device": {"platform": "gpu",

@@ -1,17 +1,16 @@
 """Typed configuration (the port's copy of ``repro/config/types.py``).
 
 Every architecture is an :class:`ArchConfig` and every input shape a
-:class:`ShapeConfig`. Validation happens in ``__post_init__`` so a bad
-config fails at construction. All configs are frozen dataclasses.
-
-The distribution and training configs (``ParallelConfig``,
-``TrainConfig``, ``RunConfig`` and the data/checkpoint configs) wait for
-the port's training slice.
+:class:`ShapeConfig`; a training run is a :class:`RunConfig` of an arch,
+a shape and the distribution, training, CARAT, data and checkpoint
+configs. Validation happens in ``__post_init__`` so a bad config fails
+at construction. All configs are frozen dataclasses.
 """
 from __future__ import annotations
 
+import dataclasses
 import enum
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
@@ -182,6 +181,40 @@ def get_shape(name: str) -> ShapeConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """Distribution knobs for the (pod, data, model) mesh. The port's
+    single-device trainer reads ``remat``, ``microbatches`` and
+    ``opt_state_dtype``; the mesh knobs wait for its ``parallel/``
+    slice."""
+    fsdp: bool = True                   # shard params/opt-state over "data" too
+    remat: str = "full"                 # none | dots | full
+    scan_layers: bool = True            # lax.scan over layers (bounded HLO)
+    microbatches: int = 1               # gradient accumulation factor
+    param_dtype: str = "bfloat16"
+    compute_dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"    # bf16 for the XXL archs
+    seq_shard_attn: bool = False        # shard long-context KV over "model"
+    grad_compression: str = "none"      # none | int8
+    reduce_scatter_grads: bool = False  # RS+AG instead of all-reduce (beyond-paper)
+    overlap_io: bool = True             # async input pipeline + ckpt
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    steps: int = 200
+    learning_rate: float = 3e-4
+    warmup_steps: int = 20
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    log_every: int = 10
+    ckpt_every: int = 50
+
+
+@dataclass(frozen=True)
 class CaratConfig:
     """CARAT hyper-parameters (paper §III, §IV defaults)."""
     enable: bool = True
@@ -203,3 +236,34 @@ class CaratConfig:
     reprobe_on_change: bool = True
     reprobe_req_ratio: float = 2.0       # request-size shift that counts
     reprobe_cooldown_s: float = 2.0      # min time between resets
+
+
+@dataclass(frozen=True)
+class DataConfig:
+    sample_bytes: int = 4096 * 4         # tokenized sample footprint on PFS
+    files_per_shard: int = 64
+    prefetch_depth: int = 2
+    shuffle: bool = True
+
+
+@dataclass(frozen=True)
+class CheckpointConfig:
+    directory: str = "/ckpt"
+    async_write: bool = True
+    keep: int = 3
+    verify_manifest: bool = True
+
+
+@dataclass(frozen=True)
+class RunConfig:
+    """Top-level run description = arch x shape x distribution x IO."""
+    arch: ArchConfig
+    shape: ShapeConfig
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    carat: CaratConfig = field(default_factory=CaratConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    ckpt: CheckpointConfig = field(default_factory=CheckpointConfig)
+
+    def replace(self, **kw) -> "RunConfig":
+        return dataclasses.replace(self, **kw)

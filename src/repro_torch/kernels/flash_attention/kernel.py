@@ -20,6 +20,23 @@ tensor-core kernel, everything else (float32, other head dims, other
 alignments) to the SIMT kernel. ``launches["flash_attention"]`` counts
 every launch and ``launches["flash_attention_tc"]`` those of the
 tensor-core kernel.
+
+**The gradient.** On a CUDA tensor :func:`flash_attention` calls the op
+``torch.ops.repro_torch.flash_attention``, whose forward launches the
+kernel and whose backward (registered with ``register_autograd``)
+recomputes the plain version from the saved q, k and v under
+``torch.enable_grad()`` and returns its gradients. That is the
+gradient the reference trains with: its Pallas kernel is forward-only,
+it has no backward kernel, and ``jax.value_and_grad`` differentiates
+its XLA oracle (``repro/models/runtime_flags.py``: ``ATTN_BACKEND`` is
+``"xla"``). A hand-written backward kernel is later performance work.
+The backward runs only in backward: it is the designed gradient, not a
+fallback. Being an op, the attention shows up to selective
+checkpointing, so the ``"dots"`` remat policy keeps its output instead
+of launching it again (``repro_torch.models.lm._save_dots``). On CPU
+tensors :func:`flash_attention` is the plain version, which autograd
+differentiates directly; the op itself runs the plain version there
+too, which lets the CPU tests hold its backward to that autograd.
 """
 from __future__ import annotations
 
@@ -38,6 +55,8 @@ MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
+# the profiler range around the op's backward
+BACKWARD_RANGE = "repro_torch::flash_attention_backward"
 
 
 def reset_launches() -> None:
@@ -82,20 +101,67 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Attention of q (B, Hq, Sq, D) over k, v (B, Hkv, Sk, D): GQA, the
     causal / sliding-window / bidirectional masks, any Sq and Sk, float32
     or bfloat16, D <= 256 on the card. Returns (B, Hq, Sq, D) in q's
-    dtype."""
-    dev = q.device
+    dtype, differentiable in q, k and v."""
     check(q.dim() == 4 and k.dim() == 4 and v.dim() == 4,
           "q, k, v must be (B, H, S, D)")
     b, hq, sq, d = q.shape
-    hkv, sk = k.shape[1], k.shape[2]
+    hkv = k.shape[1]
     check(tuple(v.shape) == tuple(k.shape), "k and v must have one shape")
     check(k.shape[0] == b and k.shape[3] == d,
           "k, v must match q's batch and head dim")
     check(hkv >= 1 and hq % hkv == 0, "GQA requires Hq % Hkv == 0")
     check(window >= 0, f"window must be >= 0, got {window}")
-    if dev.type == "cpu":
+    if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    scale=scale)
+    return flash_attention_op(q, k, v, causal, window, scale)
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def flash_attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       causal: bool, window: int,
+                       scale: Optional[float]) -> torch.Tensor:
+    """The attention as an op: the kernel on CUDA tensors, the plain
+    version on CPU tensors."""
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   scale=scale)
+    return _launch(q, k, v, causal, window, scale)
+
+
+@flash_attention_op.register_fake
+def _(q, k, v, causal, window, scale):
+    b, hq, sq, d = q.shape
+    return q.new_empty((b, sq, hq, d)).transpose(1, 2)
+
+
+def _setup_context(ctx, inputs, output) -> None:
+    q, k, v, ctx.causal, ctx.window, scale = inputs
+    # the scale the forward used: the kernel's exact d ** -0.5 by default
+    ctx.scale = scale if scale is not None else q.shape[-1] ** -0.5
+    ctx.save_for_backward(q, k, v)
+
+
+def _backward(ctx, grad: torch.Tensor):
+    """Gradients of the plain version, recomputed from the saved inputs
+    (a named range of a profiler's trace, which gives its device time)."""
+    q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
+    with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
+        out = flash_attention_ref(q, k, v, causal=ctx.causal,
+                                  window=ctx.window, scale=ctx.scale)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
+    return dq, dk, dv, None, None, None
+
+
+flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, scale: Optional[float]) -> torch.Tensor:
+    """The CUDA kernel's launch on validated shapes."""
+    dev = q.device
+    b, hq, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
     check(dev.type == "cuda", f"unsupported device {dev}")
     check(q.dtype in DTYPES, f"q must be float32 or bfloat16, got {q.dtype}")
     for name, t in (("q", q), ("k", k), ("v", v)):

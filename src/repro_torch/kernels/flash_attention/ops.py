@@ -13,7 +13,9 @@ of Hkv; ``causal`` masks keys after the query (positions from 0),
 window=0`` is bidirectional. Any Sq and Sk (the Pallas kernel wants
 multiples of its 128-row blocks). ``scale`` defaults to ``D ** -0.5``;
 in bfloat16 the plain version, like the reference's oracle, rounds it to
-bfloat16 first (equal for D = 16, 64 and 256).
+bfloat16 first (equal for D = 16, 64 and 256). The op is differentiable
+in q, k and v: on CUDA tensors its backward is the plain version's
+gradient, recomputed from the saved inputs (``kernel.py`` says why).
 """
 from repro_torch.kernels.flash_attention.kernel import flash_attention
 

@@ -1,4 +1,5 @@
-"""Carry the reference's weights into the port's modules.
+"""Carry the reference's weights, and its training state, into the
+port's modules.
 
 The reference keeps a model's parameters as a pytree of arrays
 (``repro.models.lm.LanguageModel.init``); the port keeps them in
@@ -40,7 +41,10 @@ def _copy(dst, src: Any, where: str) -> None:
         for k in dst.keys():
             _copy(dst[k], src[k], f"{where}.{k}")
         return
-    arr = np.asarray(src).astype(np.float32)
+    arr = np.array(src)                  # a writable copy for torch
+    if arr.dtype.kind not in "biu":
+        # floats, and NumPy's bfloat16 of the reference, through float32
+        arr = arr.astype(np.float32)
     if tuple(arr.shape) != tuple(dst.shape):
         raise ValueError(f"{where}: shape {arr.shape}, expected "
                          f"{tuple(dst.shape)}")
@@ -51,16 +55,33 @@ def load_reference_params(model: LanguageModel,
                           params: Mapping) -> LanguageModel:
     """Load the reference's params (numpy arrays, or anything
     ``np.asarray`` takes) into ``model``, casting to its dtype."""
-    tree: Dict[str, Any] = model.param_tree()
+    _copy_params(model.param_tree(), params, "params")
+    return model
+
+
+def load_reference_state(state: Mapping, ref_state: Mapping) -> Mapping:
+    """Load a reference ``TrainState`` (``{"params", "opt": {"m", "v",
+    "count"}, "step"}`` with NumPy leaves; its layers stacked or a list)
+    into the port's ``state`` (``repro_torch.train.TrainState.init``) in
+    place; returns ``state``."""
+    _copy_params(state["params"], ref_state["params"], "params")
+    for name in ("m", "v"):
+        _copy_params(state["opt"][name], ref_state["opt"][name],
+                     f"opt.{name}")
+    _copy(state["opt"]["count"], ref_state["opt"]["count"], "opt.count")
+    _copy(state["step"], ref_state["step"], "step")
+    return state
+
+
+def _copy_params(tree: Mapping, params: Mapping, where: str) -> None:
     if set(params.keys()) != set(tree.keys()):
-        raise ValueError(f"expected top-level keys {sorted(tree)}, got "
-                         f"{sorted(params.keys())}")
-    _copy(tree["embed"], params["embed"], "embed")
-    _copy(tree["final_norm"], params["final_norm"], "final_norm")
+        raise ValueError(f"{where}: expected top-level keys {sorted(tree)},"
+                         f" got {sorted(params.keys())}")
+    _copy(tree["embed"], params["embed"], f"{where}.embed")
+    _copy(tree["final_norm"], params["final_norm"], f"{where}.final_norm")
     layers = _unstack(params["layers"], len(tree["layers"]))
     if len(layers) != len(tree["layers"]):
-        raise ValueError(f"expected {len(tree['layers'])} layers, got "
-                         f"{len(layers)}")
+        raise ValueError(f"{where}: expected {len(tree['layers'])} layers, "
+                         f"got {len(layers)}")
     for i, (dst, src) in enumerate(zip(tree["layers"], layers)):
-        _copy(dst, src, f"layers[{i}]")
-    return model
+        _copy(dst, src, f"{where}.layers[{i}]")

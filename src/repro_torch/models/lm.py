@@ -1,25 +1,40 @@
-"""The language model of the port's serving path (the twin of
-``repro/models/lm.py``) for the dense GQA family.
+"""The language model of the port (the twin of ``repro/models/lm.py``)
+for the dense GQA family.
 
 :class:`LanguageModel` is an ``nn.Module``: embedding, one
 :class:`Block` module per layer in an ``nn.ModuleList`` (the reference
 stacks the layers' params and runs ``lax.scan``), final norm and the
 (tied) LM head. Weights keep the reference's ``(in, out)`` layout and
-are applied as ``x @ w``. The model serves: its parameters are made
-without gradients, and the loss, remat and the other families (MoE, SSM,
-hybrid, VLM, audio, MTP) wait for later slices and raise at construction.
+are applied as ``x @ w``. Parameters are made without gradients, which
+serving wants; the trainer (``repro_torch.train.step``) turns them on
+with ``model.requires_grad_(True)``. The other families (MoE, SSM,
+hybrid, VLM, audio, MTP) wait for later slices and raise at
+construction.
 
 Entry points:
-  forward(batch)                     -> (logits (B, S, V), aux)
+  forward(batch, remat)              -> (logits (B, S, V), aux)
+  loss(batch, remat)                 -> mean next-token cross-entropy
   prefill(batch, cache_len)          -> last-token logits (B, V)
   decode_step(tokens, cache, pos)    -> (logits (B, V), cache)
+
+``remat`` is the reference's rematerialization policy, applied per
+block: ``"none"`` keeps every activation; ``"full"`` keeps only each
+block's input and recomputes the rest in backward
+(``torch.utils.checkpoint``, non-reentrant); ``"dots"`` keeps the
+outputs of the matrix products (and of the attention op, whose plain
+version is matrix products) and recomputes the rest, as
+``jax.checkpoint_policies.checkpoint_dots`` does. Recomputation
+repeats the same operations, so no number changes with the policy.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, List, Mapping, Tuple
+import functools
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.config.types import ArchConfig, AttentionKind, Family
 from repro_torch.device import DeviceLike, resolve_device
@@ -157,16 +172,33 @@ class LanguageModel(nn.Module):
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
         return L.embed_tokens(self.embedding, tokens.long())
 
-    def forward(self, batch: Mapping) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, batch: Mapping,
+                remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
         """Full-sequence pass -> (logits (B, S, V), aux loss 0)."""
         x = self.embed(batch)
         positions = torch.arange(x.shape[1], device=self.device)
         for blk in self.layers:
-            x = blk(x, positions)
+            x = _maybe_remat(blk, remat)(x, positions)
         x = L.norm_apply(self.final_norm, self.cfg, x)
         logits = L.lm_logits(self.embedding, x)
         return logits, torch.zeros((), dtype=torch.float32,
                                    device=self.device)
+
+    # ------------------------------------------------------------------ loss
+    def loss(self, batch: Mapping, remat: str = "none") -> torch.Tensor:
+        """Mean next-token cross-entropy of ``batch["labels"]`` plus the
+        aux loss (0 for the dense family)."""
+        logits, aux = self.forward(batch, remat=remat)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        total = _xent(logits, labels) + aux
+        if self.cfg.mtp_depth > 0:
+            total = total + 0.3 * self._mtp_loss(batch, logits)
+        return total
+
+    def _mtp_loss(self, batch: Mapping, main_logits: torch.Tensor):
+        raise NotImplementedError(
+            f"{self.cfg.name}: the MTP loss waits for the MTP family "
+            f"(ROADMAP Queue 1: the rest of the LM stack)")
 
     # --------------------------------------------------------------- serving
     def cache_spec(self, batch: int, cache_len: int,
@@ -198,6 +230,40 @@ class LanguageModel(nn.Module):
         reference's ``prefill``; it fills no cache)."""
         logits, _ = self.forward(batch)
         return logits[:, -1]
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    ll = torch.take_along_dim(lp, labels.long()[..., None], dim=-1)[..., 0]
+    return -ll.mean()
+
+
+# what "dots" keeps: the aten ops a ``@`` or an einsum lowers to, and the
+# attention op (registered when ``models.attention`` imports its kernel)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+                   torch.ops.aten.addmm.default,
+                   torch.ops.aten.baddbmm.default,
+                   torch.ops.repro_torch.flash_attention.default})
+
+
+def _save_dots(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn: Callable, remat: str) -> Callable:
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"remat must be 'none', 'dots' or 'full', got "
+                     f"{remat!r}")
 
 
 def build_model(cfg: ArchConfig, device: DeviceLike = None,

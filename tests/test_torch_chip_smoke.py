@@ -5,6 +5,7 @@ build and agree with the plain versions there."""
 import os
 import shutil
 
+import pytest
 import torch
 
 import chip_smoke
@@ -48,11 +49,16 @@ def test_kernel_phases_on_cpu():
     assert long["lengths"] == [128, 91, 54] and long["max_abs_err"] == 0.0
     assert long["float32"]["max_abs_err"] == 0.0 and long["splits"] == 1
     assert long["bound_ms"] > dec["bound_ms"] > 0.0
+    simt = chip_smoke.phase_flash_attention_train(CPU, 2, 4, 2, 16, 32,
+                                                  reps=1)
+    assert simt["max_abs_err"] == 0.0 and simt["grad_max_abs_err"] == 0.0
     launches = {"gbdt_logits": 2, "gbdt_grid_logits": 5,
-                "flash_attention": 40, "decode_attention": 640}
+                "flash_attention": 40, "flash_attention_simt": 80,
+                "decode_attention": 640}
     line = chip_smoke.kernel_line(
         {"gbdt_logits": small, "gbdt_grid_logits": grid,
-         "flash_attention": fa, "decode_attention": dec}, launches)
+         "flash_attention": fa, "flash_attention_simt": simt,
+         "decode_attention": dec}, launches)
     assert [k["name"] for k in line["kernels"]] == list(launches)
     for k in line["kernels"]:
         assert set(k) == KEYS and k["bound_ms"] > 0.0
@@ -248,3 +254,61 @@ def test_ml_phase_on_cpu(tmp_path):
     # the trainers are restored after the phase
     from repro_torch.core.ml import nets, train
     assert train.train_net is nets.train_net
+
+
+def test_lm_train_phase_on_cpu(tmp_path):
+    """The training phase at a small size on the CPU, the full-width part
+    at granite-3-2b's reduced config: (a) the launcher off and on, its
+    decisions equal a CPU-scored pipeline's; (b) the restart bit-exact;
+    (c) every step split into forward+backward and AdamW; (d) the step
+    against itself. On the CPU nothing launches."""
+    cfg = reduced_config(get_arch("granite-3-2b"))
+    out = chip_smoke.phase_lm_train(CPU, cfg, launch_steps=4,
+                                    ckpt_every=2, full_batch=2, full_seq=16,
+                                    full_steps=2)
+    assert out["phase"] == "lm_train"
+    a = out["a"]
+    for key in ("carat_off", "carat_on"):
+        row = a[key]
+        assert row["last_line"].startswith("final_loss=")
+        assert row["step0_batch_loss_after"] < row["losses_first_last"][0]
+        assert row["ms_per_step"] > 0.0 and row["pfs_MBps"] > 0.0
+        assert set(row["launches"].values()) == {0}
+    assert a["carat_off"]["decisions"] == 0
+    assert a["carat_on"]["scorer_calls"] > 0
+    assert a["carat_on"]["decisions_equal_cpu_scorers"]
+    assert out["b"]["bit_exact"] and out["b"]["replayed"] == \
+        out["b"]["losses"][4:6]
+    c = out["c"]
+    assert c["steps"] == len(c["per_step"]) == len(c["losses"]) == 2
+    for row in c["per_step"]:
+        assert row["ms"] > 0.0 and row["input_wait_s"] >= 0.0
+    # the traced step's update range splits a step
+    assert c["profiled"]["adamw_calls"] == 1
+    assert 0.0 < c["adamw_ms"] < c["ms_per_step"] and c["fwd_bwd_ms"] > 0.0
+    assert c["tokens_per_step"] == 32 and set(c["launches"].values()) == {0}
+    d = out["d"]
+    assert d["steps"] == len(d["losses_card"]) == 3
+    assert d["lr"][0] == pytest.approx(3e-4)       # no warm-up
+    # both sides on the CPU: two models round the embedding's gradient
+    # apart in its last bits, inside the phase's bars; the weights moved
+    assert d["loss_rel_err"] <= d["rel"]
+    assert d["grad_norm_rel_err"] <= d["grad_rel"]
+    assert d["grad_worst"]["err_over_bound"] <= 1.0
+    assert d["param_max_abs_err"] <= d["atol"] < d["param_max_move"] / 10
+    simt = d["qkv_grad"]
+    assert simt["shape"] == [8, cfg.n_heads, cfg.n_kv_heads, 16,
+                             cfg.resolved_head_dim]
+    assert simt["grad_max_abs_err"] == 0.0 and simt["library_ms"] > 0.0
+    # the kernel line lists all four kernels, K2 with a row for each of
+    # its two kernels (tensor cores for serving, SIMT for training)
+    line = chip_smoke.kernel_line(
+        {name: {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0,
+                "bound_ms": 0.5, "bound_by": "bytes"}
+         for name in chip_smoke.KERNELS} | {"flash_attention_simt": simt},
+        {name: 1 for name in chip_smoke.KERNELS})
+    assert [k["name"] for k in line["kernels"]] == [
+        "gbdt_logits", "gbdt_grid_logits", "flash_attention",
+        "flash_attention_simt", "decode_attention"]
+    for k in line["kernels"]:
+        assert set(k) == KEYS

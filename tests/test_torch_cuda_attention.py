@@ -338,3 +338,83 @@ def test_serve_engine_bf16_model_over_default_cache(dev):
     for r in reqs:
         assert len(r.out_tokens) == 5
         assert all(0 <= t < cfg.vocab_size for t in r.out_tokens)
+
+
+# ------------------------------------------------------ training on the card
+@pytest.mark.parametrize("causal,window", MASKS)
+def test_flash_attention_gradient_is_the_plain_versions(dev, causal, window):
+    """K2 with a gradient: the forward launches the kernel once, the
+    backward recomputes the plain version, so q, k and v's gradients
+    equal the plain version's autograd on the same card exactly."""
+    q, k, v, g = _normal(dev, 21, torch.float32, (2, 8, 70, 64),
+                         (2, 2, 70, 64), (2, 2, 70, 64), (2, 8, 70, 64))
+    qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    before = fa_kernel.launches["flash_attention"]
+    out = fa_kernel.flash_attention(*qkv, causal=causal, window=window)
+    got = torch.autograd.grad(out, qkv, g)
+    assert fa_kernel.launches["flash_attention"] == before + 1
+    ref_qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    want_out = flash_attention_ref(*ref_qkv, causal=causal, window=window)
+    want = torch.autograd.grad(want_out, ref_qkv, g)
+    _assert_close(out.detach(), want_out.detach())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("remat,per_step", [("none", 1), ("dots", 1),
+                                            ("full", 2)])
+def test_train_step_launches_per_remat(dev, remat, per_step):
+    """Three train steps of reduced granite on the card and on the CPU
+    from the same weights, with no warm-up, so every step moves the
+    weights. K2 launches once per layer per step; with ``remat="full"``
+    the backward's recompute launches it again, with ``"dots"`` its saved
+    output is reused. Every step's loss equals the CPU step's at the
+    reference's ``rel=1e-5`` and the parameters after the last step at
+    its ``atol=1e-5`` (``tests/test_train.py:67-70``); every grad norm at
+    ``rel=1e-4`` and each gradient of the first step within ``1e-5``
+    plus ``1e-4`` of its largest element, the bar of the CPU tests
+    against the reference (``tests/test_torch_train.py``)."""
+    from repro_torch.config import (ParallelConfig, RunConfig, ShapeConfig,
+                                    TrainConfig)
+    from repro_torch.train import (AdamWConfig, TrainState, make_loss_fn,
+                                   make_train_step)
+    from repro_torch.utils.tree import tree_leaves
+    cfg = reduced_config(get_arch("granite-3-2b"))
+    rng = np.random.default_rng(0)
+    batches = [{"tokens": rng.integers(0, cfg.vocab_size, (4, 32)),
+                "labels": rng.integers(0, cfg.vocab_size, (4, 32))}
+               for _ in range(3)]
+    run = RunConfig(arch=cfg, shape=ShapeConfig("t", 32, 4, "train"),
+                    parallel=ParallelConfig(remat=remat),
+                    train=TrainConfig(warmup_steps=0))
+    host = build_model(cfg, device="cpu", dtype=torch.float32)
+    host.init(torch.Generator().manual_seed(1))
+    card = build_model(cfg, device=dev, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    init = [p.detach().clone() for p in tree_leaves(host.param_tree())]
+    out = []
+    for model in (host, card):
+        step = make_train_step(model, run)
+        state = TrainState.init(model.param_tree(), AdamWConfig())
+        loss = make_loss_fn(model, run)(batches[0])
+        grads = [g.cpu() for g in torch.autograd.grad(
+            loss, tree_leaves(state["params"]))]
+        before = fa_kernel.launches["flash_attention"]
+        metrics = []
+        for b in batches:
+            state, m = step(state, b)
+            metrics.append((float(m["loss"]), float(m["grad_norm"])))
+        launched = fa_kernel.launches["flash_attention"] - before
+        out.append((metrics, grads, [p.detach().cpu() for p in
+                                     tree_leaves(state["params"])]))
+    assert launched == per_step * cfg.n_layers * len(batches)
+    (want_m, want_g, want_p), (got_m, got_g, got_p) = out
+    for (loss, gnorm), (want_loss, want_gnorm) in zip(got_m, want_m):
+        assert loss == pytest.approx(want_loss, rel=1e-5)
+        assert gnorm == pytest.approx(want_gnorm, rel=1e-4)
+    for g, want in zip(got_g, want_g):
+        assert _max_err(g, want) <= 1e-5 + 1e-4 * float(want.abs().max())
+    for p, want in zip(got_p, want_p):
+        assert _max_err(p, want) <= 1e-5
+    # the steps moved the weights by more than the bar
+    assert max(_max_err(p, p0) for p, p0 in zip(want_p, init)) > 1e-4

@@ -62,12 +62,23 @@ DEPLOYMENT_MODULES = [
       ("wire", "process_bus", "socket_bus", "fleet")),
     "repro_torch.core.runtime.transport",
 ]
+# the training slice's modules: the input pipeline, the trainer, the
+# checkpoints, the launcher (and the tree helpers they share)
+TRAINING_MODULES = [
+    "repro_torch.utils.tree",
+    "repro_torch.data.pipeline", "repro_torch.data",
+    *(f"repro_torch.train.{m}" for m in
+      ("optimizer", "schedule", "state", "step")),
+    "repro_torch.train",
+    "repro_torch.ckpt.checkpoint", "repro_torch.ckpt",
+    "repro_torch.launch.train", "repro_torch.launch",
+]
 
 
 def test_deployment_modules_import_first_without_jax_or_reference():
-    """Each module of the deployment imports first in a fresh
-    interpreter (no eager import cycle), with ``jax`` and the reference
-    blocked, and pulls in neither."""
+    """Each module of the deployment, and of the training slice, imports
+    first in a fresh interpreter (no eager import cycle), with ``jax``
+    and the reference blocked, and pulls in neither."""
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
     block = _BLOCKED_IMPORTS.split("\nimport repro_torch\n")[0]
     procs = {name: subprocess.Popen(
@@ -77,7 +88,7 @@ def test_deployment_modules_import_first_without_jax_or_reference():
                          if m.split(".")[0] in ("jax", "jaxlib", "repro")))
         """)], cwd=REPO, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
-        for name in DEPLOYMENT_MODULES}
+        for name in DEPLOYMENT_MODULES + TRAINING_MODULES}
     for name, proc in procs.items():
         out, err = proc.communicate(timeout=300)
         assert proc.returncode == 0, f"{name}: {err}"
