@@ -39,16 +39,28 @@ paths:
 * CARAT's models: the production GBDT pair regenerated under the
   paper's §IV-B protocol (byte-equal to the committed assets), Table IV
   (``train_all_models``) with the nets trained on the card, and each net
-  past the reference's bar on its radial task.
+  past the reference's bar on its radial task;
+* the LM serving path of the MoE family: flash attention's tensor-core
+  kernel at moonshot-v1-16b-a3b's prefill shape (D 128) and MLA's (D
+  192, v zero-padded), decode attention at moonshot's decode shape, the
+  family in float32 (moonshot at full width cut to 8 layers, forward
+  against decode; deepseek-v3-671b's MLA attention and MoE block at full
+  width; both reduced archs on the card against the CPU, dispatch states
+  equal), then a bfloat16 prefill of 4 x 2048 tokens and
+  ``ServeEngine.generate`` on 8 ragged requests for moonshot at full
+  width and depth and for deepseek at full width cut to one layer (its
+  MTP block kept), dropped assignments counted and two prefills equal
+  bit for bit.
 
 Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
 launches (the GBDT kernels': the ``carat`` run's, both sharded CARAT
 runs' and the first process run's, its workers' ``gbdt_logits`` calls
 included, and the training pipelines'; flash attention's two kernels
-as two rows: the tensor-core kernel's in the prefill, the SIMT
-kernel's in the float32 training steps, each beside its own timing)
-and times, and the last line is
+as two rows: the tensor-core kernel's in the prefills (granite's and
+the MoE family's), the SIMT kernel's in the float32 training steps, each
+beside its own timing at granite's shapes; decode attention's in
+granite's and moonshot's generate) and times, and the last line is
 ``{"ok": true, "device": {...}}``.
 
 Usage (one CUDA device; imports nothing of JAX or of ``repro``)::
@@ -115,6 +127,8 @@ DECODE_ATOL = 5e-4
 # values about as small as the absolute 2e-2, which alone would pass a
 # wrong row; a right one differs by about one bfloat16 ulp (2**-8)
 BF16_ROW_RTOL = 2e-2
+# decode steps in the traced window of each lm_serve phase
+PROFILE_STEPS = 8
 
 # workload mixes of the reference's benchmarks/bench_soa_device.py
 STRIPED_CYCLE = ("f_rd_rn_8k", "f_wr_sq_1m", "f_rd_sq_1m", "f_wr_rn_8k",
@@ -1353,11 +1367,56 @@ def _attn_launches() -> Dict[str, int]:
     return {**fa.launches, **dec.launches}
 
 
+class _Dispatches:
+    """While active, records every MoE layer's dispatch: it wraps
+    ``repro_torch.models.moe.dispatch`` (which ``moe_apply`` looks up at
+    each call) and keeps each call's assignment and dropped counts as
+    device scalars (read once, at the end) and, with ``keep_states``,
+    its integer state on the host."""
+
+    def __init__(self, keep_states: bool = False):
+        self.keep_states = keep_states
+        self.counts: List = []
+        self.states: List = []
+        self.capacities: List[int] = []
+
+    def __enter__(self) -> "_Dispatches":
+        from repro_torch.models import moe
+        self._moe, self._dispatch = moe, moe.dispatch
+
+        def recorded(x, top_i, cap, e):
+            buf, state = self._dispatch(x, top_i, cap, e)
+            self.counts.append((state.keep.numel(), (~state.keep).sum()))
+            if cap not in self.capacities:
+                self.capacities.append(cap)
+            if self.keep_states:
+                self.states.append([t.cpu() for t in state])
+            return buf, state
+
+        moe.dispatch = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._moe.dispatch = self._dispatch
+
+    def assignments(self) -> int:
+        return sum(n for n, _ in self.counts)
+
+    def dropped(self) -> int:
+        return int(sum(int(d.item()) for _, d in self.counts))
+
+
 def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
-                         cache_len: int, seed: int) -> Dict:
+                         cache_len: int, seed: int,
+                         published=None) -> Dict:
     """``cfg`` with float32 weights from a seeded generator (TF32 off):
     the forward's logits at every position against token-by-token
-    ``decode_step``, at the reference's ``atol=5e-4``."""
+    ``decode_step``, at the reference's ``atol=5e-4``. For an MoE arch
+    the forward must drop no assignment (a dropped one would part it
+    from decode, whose one token per row always fits). With
+    ``published`` (``cfg`` at another capacity factor), a first forward
+    of the same weights under its capacity counts the assignments that
+    capacity drops."""
     import torch
     from repro_torch.models.lm import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1370,10 +1429,25 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
     init_s = time.perf_counter() - t0
     tokens = torch.from_numpy(rng(seed).integers(
         0, cfg.vocab_size, size=(batch, n_tokens))).to(dev)
+    out: Dict = {}
+    if published is not None:
+        # the blocks read their config at each call: the same weights
+        # under the published capacity, then back
+        with torch.inference_mode(), _Dispatches() as pub:
+            for blk in model.layers:
+                blk.cfg = published
+            model.forward({"tokens": tokens})
+            for blk in model.layers:
+                blk.cfg = cfg
+        out["published_capacity"] = {
+            "capacity_factor": published.moe.capacity_factor,
+            "capacity": pub.capacities, "assignments": pub.assignments(),
+            "dropped": pub.dropped()}
     _reset_attn_launches()
     worst = 0.0
     with torch.inference_mode():
-        fwd, _ = model.forward({"tokens": tokens})
+        with _Dispatches() as disp:
+            fwd, _ = model.forward({"tokens": tokens})
         cache = model.init_cache(batch, cache_len, dtype=torch.float32)
         for t in range(n_tokens):
             logits, cache = model.decode_step(
@@ -1385,6 +1459,8 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
     sync(dev)
     launches = _attn_launches()
     gate(finite, "forward logits are not finite")
+    gate(disp.dropped() == 0, f"the forward dropped {disp.dropped()} "
+                              f"MoE assignments")
     gate(worst <= DECODE_ATOL, f"decode differs from forward by {worst}")
     if dev.type == "cuda":
         # float32: the SIMT kernel of flash_attention
@@ -1392,11 +1468,17 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
                           "flash_attention_tc": 0,
                           "decode_attention": cfg.n_layers * n_tokens},
              f"attention launches {launches}")
-    return {"phase": "lm_consistency", "arch": cfg.name,
-            "params": cfg.param_count(), "dtype": "float32",
-            "batch": batch, "tokens": n_tokens, "cache_len": cache_len,
-            "init_s": init_s, "max_abs_err": worst, "atol": DECODE_ATOL,
-            "max_abs_logit": scale, "launches": launches}
+    out = {"phase": "lm_consistency", "arch": cfg.name,
+           "params": cfg.param_count(), "dtype": "float32",
+           "batch": batch, "tokens": n_tokens, "cache_len": cache_len,
+           "init_s": init_s, "max_abs_err": worst, "atol": DECODE_ATOL,
+           "max_abs_logit": scale, "launches": launches, **out}
+    if cfg.moe is not None:
+        out["moe"] = {"capacity_factor": cfg.moe.capacity_factor,
+                      "assignments": disp.assignments(),
+                      "dropped": disp.dropped(),
+                      "capacity": disp.capacities}
+    return out
 
 
 def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
@@ -1410,10 +1492,14 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     are zeroed just before each and read just after. A repeat of (b),
     traced over its last ``profile_steps`` steps, gives the device's busy
     time in those steps; over their untraced time in (b) that is the
-    device's idle share."""
+    device's idle share. The warm-up prefill counts the MoE layers'
+    dropped assignments; for an MoE arch its logits must equal the timed
+    prefill's bit for bit (the combine has no atomics). MLA decodes by
+    the absorbed einsums: no ``decode_attention`` launch."""
     import torch
     from repro_torch.models.lm import build_model
     from repro_torch.serve import Request, ServeEngine
+    t_phase = time.perf_counter()
     model = build_model(cfg, device=dev, dtype=torch.bfloat16)
     model.init(_generator(dev, seed))
     r = rng(seed)
@@ -1425,7 +1511,8 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     batch = {"tokens": torch.from_numpy(
         r.integers(0, v, size=(prefill_batch, prefill_len))).to(dev)}
     with torch.inference_mode():
-        model.prefill(batch, prefill_len)           # warm-up
+        with _Dispatches() as disp:                 # warm-up
+            first = model.prefill(batch, prefill_len).clone()
         sync(dev)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
@@ -1438,13 +1525,20 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
         gate(tuple(logits.shape) == (prefill_batch, v)
              and bool(torch.isfinite(logits).all().item()),
              "prefill logits are not finite (B, V)")
-    del logits
+        bit_equal = bool(torch.equal(first, logits))
+    del logits, first
+    if cfg.moe is not None:
+        gate(bit_equal, "two bf16 prefills gave different logits")
     out["prefill"] = {
         "batch": prefill_batch, "tokens": prefill_len, "ms": prefill_s * 1e3,
         "tokens_per_s": prefill_batch * prefill_len / prefill_s,
-        "launches": launches_a,
+        "launches": launches_a, "bit_equal_to_warm_up": bit_equal,
         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None)}
+    if cfg.moe is not None:
+        out["prefill"]["moe"] = {"assignments": disp.assignments(),
+                                 "dropped": disp.dropped(),
+                                 "capacity": disp.capacities}
 
     # (b) generate, every step's logits checked finite on the device; the
     # hooks run before each step with its index
@@ -1501,13 +1595,15 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     gate(len(flags) == steps and bool(torch.stack(flags).all().item()),
          "a decode step's logits are not finite")
     if dev.type == "cuda":
-        # bfloat16: every prefill launch on the tensor-core kernel
+        # bfloat16: every prefill launch on the tensor-core kernel; MLA's
+        # absorbed decode launches no decode_attention
+        per_step = 0 if cfg.mla is not None else cfg.n_layers
         gate(launches_a == {"flash_attention": cfg.n_layers,
                             "flash_attention_tc": cfg.n_layers,
                             "decode_attention": 0},
              f"prefill attention launches {launches_a}")
         gate(launches_b == {"flash_attention": 0, "flash_attention_tc": 0,
-                            "decode_attention": cfg.n_layers * steps},
+                            "decode_attention": per_step * steps},
              f"generate attention launches {launches_b}")
     gen = out["generate"] = {
         "requests": n_requests,
@@ -1526,12 +1622,15 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     if dev.type == "cuda":
         # a repeat of the same requests, traced over the same last steps
         prof = _profiler()
+        t0 = time.perf_counter()
         again, _, traced_s = generate(prof.start)
+        t1 = time.perf_counter()
         prof.stop()
         busy_ms, heaviest = _device_time(prof, top=12)
         out["profiled"] = {
             "run": f"a repeat of (b), traced over its last {profile_steps} "
                    f"decode steps",
+            "s": t1 - t0, "trace_processing_s": time.perf_counter() - t1,
             "decode_steps": profile_steps,
             "same_tokens": ([q.out_tokens for q in again]
                             == [q.out_tokens for q in reqs]),
@@ -1548,7 +1647,265 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
             gen["device_idle_share"] = 1.0 - (
                 busy_ms / profile_steps) / gen["tail_ms_per_step"]
     del model.decode_step
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
+
+
+# ------------------------------------------- LM serving: the MoE family
+def phase_prefill_attention(dev, arch: str, b: int, h: int, s: int, d: int,
+                            v_dim: int, seed: int, reps: int) -> Dict:
+    """``flash_attention`` at an MoE arch's prefill shape: bfloat16,
+    causal, Hq = Hkv = ``h``, head dim ``d``, the scale ``d ** -0.5``
+    passed explicitly as the model passes it. Where ``v_dim < d`` (MLA)
+    v has ``v_dim`` columns zero-padded to ``d``, as ``mla_operands``
+    builds it, and the output's padded columns must be exactly 0. The
+    tensor-core kernel must take it (``takes_tensor_cores`` and its
+    launch counter). Timed by graph replay, with the wrapper's host time
+    per call (``call_ms``), the plain version's and SDPA's time and the
+    bound from the shapes."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = _generator(dev, seed)
+    q, k, v = _randn(g, dev, torch.bfloat16, (b, h, s, d), (b, h, s, d),
+                     (b, h, s, v_dim))
+    v = F.pad(v, (0, d - v_dim))
+    scale = float(d) ** -0.5
+    tc_rule = fa.takes_tensor_cores(q, k, v)
+    before = dict(fa.launches)
+    got = flash_attention(q, k, v, causal=True, scale=scale)
+    sync(dev)
+    tc = fa.launches["flash_attention_tc"] - before["flash_attention_tc"]
+    launches = {"tensor_core": tc, "simt": fa.launches["flash_attention"]
+                - before["flash_attention"] - tc}
+    if dev.type == "cuda":
+        gate(tc_rule and launches == {"tensor_core": 1, "simt": 0},
+             f"flash_attention {arch} D={d}: takes_tensor_cores {tc_rule}, "
+             f"launches {launches}")
+    padded_zero = bool((got[..., v_dim:] == 0).all().item())
+    gate(padded_zero, f"flash_attention {arch}: padded v columns gave "
+                      f"non-zero output")
+    close = _check_close(f"flash_attention {arch} D={d}", got,
+                         flash_attention_ref(q, k, v, causal=True,
+                                             scale=scale))
+    del got
+    run = lambda: flash_attention(q, k, v, causal=True, scale=scale)  # noqa
+    ms = graph_ms(run, dev, reps)
+    call_ms = time_ms(run, dev, reps)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True,
+                                                   scale=scale), dev, 1)
+    library_ms, library_note = _library_ms(dev, reps, q, k, v,
+                                           timer=graph_ms, is_causal=True,
+                                           scale=scale)
+    pairs = b * h * _attn_pairs(s, s, True, 0)
+    return {"phase": "flash_attention", "arch": arch,
+            "shape": [b, h, h, s, d], "v_dim": v_dim, "dtype": "bfloat16",
+            "causal": True, "scale": scale, "takes_tensor_cores": tc_rule,
+            "launches": launches, "padded_columns_zero": padded_zero,
+            **close, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
+            "library": f"scaled_dot_product_attention ({library_note})",
+            **bound(2 * (2 * q.numel() + k.numel() + v.numel()),
+                    4 * d * pairs, H100_BF16_OPS_PER_S)}
+
+
+def _mla_consistency(dev, cfg, batch: int, n_tokens: int, cache_len: int,
+                     seed: int) -> Dict:
+    """MLA attention of ``cfg`` alone, float32 weights: the full pass
+    (the flash-attention op at D = qk_head_dim, v padded; the SIMT kernel
+    in float32) at every position against the absorbed decode, one token
+    at a time against the compressed cache (no kernel)."""
+    import torch
+    from repro_torch.models import attention as attn
+    from repro_torch.models.param import count_tree_params, materialize
+    spec = attn.attn_spec(cfg)
+    g = _generator(dev, seed)
+    params = materialize(spec, g, dtype=torch.float32, device=dev)
+    x = torch.randn((batch, n_tokens, cfg.d_model), generator=g, device=dev)
+    worst = 0.0
+    with torch.inference_mode():
+        _reset_attn_launches()
+        full = attn.attn_apply(params, cfg, x)
+        sync(dev)
+        launches_full = _attn_launches()
+        (cache,) = attn.alloc_cache(
+            [attn.attn_cache_spec(cfg, batch, cache_len,
+                                  dtype=torch.float32)], dev)
+        _reset_attn_launches()
+        for t in range(n_tokens):
+            y, cache = attn.attn_decode(
+                params, cfg, x[:, t:t + 1], cache,
+                torch.full((batch,), t, dtype=torch.int32, device=dev))
+            worst = max(worst, _max_err(y[:, 0], full[:, t]))
+        launches_decode = _attn_launches()
+        scale = float(full.abs().max().item())
+    gate(worst <= DECODE_ATOL, f"MLA decode differs from the full pass by "
+                               f"{worst}")
+    if dev.type == "cuda":
+        gate(launches_full == {"flash_attention": 1, "flash_attention_tc": 0,
+                               "decode_attention": 0},
+             f"MLA full-pass launches {launches_full}")
+        gate(sum(launches_decode.values()) == 0,
+             f"MLA decode launched {launches_decode}")
+    return {"params": count_tree_params(spec),
+            "head_dim": cfg.mla.qk_head_dim, "v_head_dim": cfg.mla.v_head_dim,
+            "max_abs_err": worst, "atol": DECODE_ATOL,
+            "max_abs_value": scale, "launches_full": launches_full,
+            "launches_decode": launches_decode}
+
+
+def _moe_block_consistency(dev, cfg, batch: int, n_tokens: int,
+                           seed: int) -> Dict:
+    """``cfg``'s MoE block alone, float32 weights (drawn one stack at a
+    time): its forward over ``n_tokens`` tokens a row (no assignment may
+    be dropped) against one token at a time. Under the reference's init
+    (a stack's fan-in is its expert count) y reaches ~1e2, so the error
+    is held to DECODE_ATOL of max(1, the largest |y|)."""
+    import torch
+    from repro_torch.models import moe
+    from repro_torch.models.param import count_tree_params, materialize
+    spec = moe.moe_spec(cfg)
+    g = _generator(dev, seed)
+    t0 = time.perf_counter()
+    params = materialize(spec, g, dtype=torch.float32, device=dev)
+    sync(dev)
+    init_s = time.perf_counter() - t0
+    x = torch.randn((batch, n_tokens, cfg.d_model), generator=g, device=dev)
+    with torch.inference_mode():
+        with _Dispatches() as disp:
+            y, aux = moe.moe_apply(params, cfg, x)
+        worst = 0.0
+        for t in range(n_tokens):
+            y1, _ = moe.moe_apply(params, cfg, x[:, t:t + 1])
+            worst = max(worst, _max_err(y1[:, 0], y[:, t]))
+        scale = float(y.abs().max().item())
+        aux = float(aux.item())
+    gate(disp.dropped() == 0, f"the MoE block dropped {disp.dropped()} "
+                              f"assignments")
+    bar = DECODE_ATOL * max(1.0, scale)
+    gate(worst <= bar, f"the MoE block one token at a time differs by "
+                       f"{worst} > {bar}")
+    return {"params": count_tree_params(spec), "init_s": init_s,
+            "experts": cfg.moe.n_experts, "top_k": cfg.moe.top_k,
+            "capacity": disp.capacities, "assignments": disp.assignments(),
+            "dropped": disp.dropped(), "aux": aux, "max_abs_err": worst,
+            "max_abs_value": scale, "atol": bar}
+
+
+def _reduced_card_vs_cpu(dev, cfg, batch: int, n_tokens: int,
+                         cache_len: int, seed: int) -> Dict:
+    """The reduced ``cfg`` on the card against the same float32 weights
+    on the CPU: forward and decode logits at DECODE_ATOL, the aux loss at
+    ``rel=1e-6``, every MoE layer's integer dispatch state ``==``."""
+    import torch
+    from repro_torch.models.lm import build_model
+    cpu_dev = torch.device("cpu")
+    cpu = build_model(cfg, device=cpu_dev, dtype=torch.float32)
+    cpu.init(torch.Generator().manual_seed(seed))
+    card = build_model(cfg, device=dev, dtype=torch.float32)
+    card.load_state_dict(cpu.state_dict())
+    tokens = rng(seed).integers(0, cfg.vocab_size, size=(batch, n_tokens))
+    runs = []
+    for model, where in ((cpu, cpu_dev), (card, dev)):
+        toks = torch.from_numpy(tokens).to(where)
+        with torch.inference_mode(), _Dispatches(keep_states=True) as disp:
+            fwd, aux = model.forward({"tokens": toks})
+            cache = model.init_cache(batch, cache_len, dtype=torch.float32)
+            steps = []
+            for t in range(n_tokens):
+                logits, cache = model.decode_step(
+                    toks[:, t], cache,
+                    torch.full((batch,), t, dtype=torch.int32, device=where))
+                steps.append(logits.cpu())
+        runs.append((fwd.cpu(), float(aux), torch.stack(steps, 1),
+                     disp.states))
+    (fwd_c, aux_c, dec_c, st_c), (fwd_g, aux_g, dec_g, st_g) = runs
+    fwd_err, dec_err = _max_err(fwd_g, fwd_c), _max_err(dec_g, dec_c)
+    same = len(st_c) == len(st_g) and all(
+        all(torch.equal(a, b) for a, b in zip(x, y))
+        for x, y in zip(st_c, st_g))
+    gate(fwd_err <= DECODE_ATOL and dec_err <= DECODE_ATOL,
+         f"{cfg.name}: card vs CPU forward {fwd_err}, decode {dec_err}")
+    gate(abs(aux_g - aux_c) <= 1e-6 * abs(aux_c),
+         f"{cfg.name}: aux {aux_g} on the card, {aux_c} on the CPU")
+    gate(same, f"{cfg.name}: a dispatch state differs from the CPU's")
+    return {"arch": cfg.name, "forward_max_abs_err": fwd_err,
+            "decode_max_abs_err": dec_err, "atol": DECODE_ATOL,
+            "aux": [aux_c, aux_g], "dispatches": len(st_g),
+            "dispatch_states_equal": same}
+
+
+def phase_moe_consistency(dev, moonshot, deepseek, depth: int, batch: int,
+                          n_tokens: int, cache_len: int, seed: int) -> Dict:
+    """The MoE family in float32 (TF32 off): (a) ``moonshot`` at full
+    width with its depth cut to ``depth``, forward against token-by-token
+    decode (``phase_lm_consistency``: K2's SIMT kernel once per layer, K3
+    once per layer per token), at a capacity factor under which no
+    assignment can be dropped (random weights route most tokens of a
+    row alike, past the published capacity of 8: the drops of the
+    published factor are reported); (b) ``deepseek``'s
+    MLA attention at full width, the full pass against the absorbed
+    decode; (c) ``deepseek``'s MoE block at full width, its forward
+    against one token at a time; (d) the reduced configs of both on the
+    card against the CPU."""
+    import dataclasses
+
+    import torch
+    from repro_torch.config import reduced_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out: Dict = {"phase": "moe_consistency", "dtype": "float32"}
+    cut = dataclasses.replace(moonshot, n_layers=min(depth,
+                                                     moonshot.n_layers))
+    # a capacity of top_k * n_tokens a row: no expert can overflow, as
+    # the reduced configs' capacity factor 4.0 makes forward and decode
+    # comparable; the published factor's drops are counted beside it
+    wide = dataclasses.replace(cut, moe=dataclasses.replace(
+        cut.moe, capacity_factor=float(cut.moe.n_experts)))
+    a = phase_lm_consistency(dev, wide, batch=batch, n_tokens=n_tokens,
+                             cache_len=cache_len, seed=seed,
+                             published=cut)
+    a["depth_cut"] = {"from": moonshot.n_layers, "to": cut.n_layers,
+                      "reason": "float32 weights of all 48 layers (112 GB) "
+                                "do not fit one 80 GB card"}
+    out["a"] = a
+    _free(dev)
+    out["b_mla"] = _mla_consistency(dev, deepseek, batch, n_tokens,
+                                    cache_len, seed + 1)
+    _free(dev)
+    out["c_moe_block"] = _moe_block_consistency(dev, deepseek, batch,
+                                                n_tokens, seed + 2)
+    _free(dev)
+    out["d_reduced"] = [
+        _reduced_card_vs_cpu(dev, reduced_config(c), batch, n_tokens,
+                             cache_len, seed + 3)
+        for c in (moonshot, deepseek)]
+    return out
+
+
+def _free(dev) -> None:
+    import gc
+
+    import torch
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def moe_serve_configs(moonshot, deepseek):
+    """The serving configs of the MoE family: moonshot at full width and
+    depth; deepseek at full width, its depth cut to 1 (with its MTP
+    block), each cut with its reason."""
+    import dataclasses
+    return [(moonshot, None),
+            (dataclasses.replace(deepseek, n_layers=1),
+             {"from": deepseek.n_layers, "to": 1,
+              "reason": "one MoE layer is 11.5 B parameters: depth 1 with "
+                        "the MTP block holds 24.97 B (49.9 GB in bf16); "
+                        "depth 2 needs 73 GB of weights, no room for the "
+                        "prefill's activations on one 80 GB card"})]
 
 
 # ------------------------------------------------------- LM training path
@@ -2235,10 +2592,13 @@ def main() -> int:
     emit(phase_lm_consistency(dev, granite, batch=2, n_tokens=16,
                               cache_len=32, seed=6))
     torch.cuda.empty_cache()
+    # the trace of the profiled repeat covers 8 decode steps: reading back
+    # a trace takes ~2 s per granite step (~4 s per moonshot step) on the
+    # host, and the whole script has to end within 1200 s
     serve = phase_lm_serve(dev, granite, prefill_batch=4, prefill_len=2048,
                            n_requests=8, prompt0=128, prompt_step=48,
-                           max_new=64, cache_len=1024, profile_steps=32,
-                           seed=7)
+                           max_new=64, cache_len=1024,
+                           profile_steps=PROFILE_STEPS, seed=7)
     emit(serve)
     # the serving model and its caches went with the phase's frame
     torch.cuda.empty_cache()
@@ -2258,12 +2618,52 @@ def main() -> int:
     # nets on the card, the reference's bar for the nets
     with tempfile.TemporaryDirectory(prefix="ml_cache_", dir=build) as cache:
         emit(phase_ml(dev, cache, reps=16, duration_s=60.0, seed=0))
+    _free(dev)
+
+    # the MoE family: K2 at its two prefill shapes (moonshot D 128, MLA D
+    # 192 with v padded) and K3 at moonshot's decode shape, the float32
+    # consistency of both archs, then serving moonshot-v1-16b-a3b at full
+    # width and depth and deepseek-v3-671b at full width, depth 1
+    moonshot = get_arch("moonshot-v1-16b-a3b")
+    deepseek = get_arch("deepseek-v3-671b")
+    mla = deepseek.mla
+    emit(phase_prefill_attention(dev, moonshot.name, 4, moonshot.n_heads,
+                                 2048, moonshot.resolved_head_dim,
+                                 moonshot.resolved_head_dim, seed=9,
+                                 reps=10))
+    emit(phase_prefill_attention(dev, deepseek.name, 4, deepseek.n_heads,
+                                 2048, mla.qk_head_dim, mla.v_head_dim,
+                                 seed=10, reps=5))
+    _free(dev)
+    emit(phase_decode_attention(dev, 8, moonshot.n_heads,
+                                moonshot.n_kv_heads,
+                                moonshot.resolved_head_dim, path_s=1024,
+                                path_len=512, s=4096, step=37, seed=11,
+                                reps=200))
+    emit(phase_moe_consistency(dev, moonshot, deepseek, depth=8, batch=2,
+                               n_tokens=16, cache_len=32, seed=12))
+    _free(dev)
+    moe_serves = []
+    for cfg, cut in moe_serve_configs(moonshot, deepseek):
+        # granite's traffic and traced window
+        out = phase_lm_serve(dev, cfg, prefill_batch=4, prefill_len=2048,
+                             n_requests=8, prompt0=128, prompt_step=48,
+                             max_new=64, cache_len=1024,
+                             profile_steps=PROFILE_STEPS, seed=13)
+        if cut is not None:
+            out["depth_cut"] = cut
+        emit(out)
+        moe_serves.append(out)
+        _free(dev)
 
     # each kernel's launches summed over the paths that drive it: K1 and
     # K1b on the CARAT runs and the training pipelines; K2's tensor-core
-    # kernel in the bf16 prefill, its SIMT kernel in the float32 training
-    # steps ((a) and (c); the tensor-core kernel is gated at 0 there),
-    # each row beside its own kernel's timing; K3 in generate
+    # kernel in the bf16 prefills (granite's and the MoE family's), its
+    # SIMT kernel in the float32 training steps ((a) and (c); the
+    # tensor-core kernel is gated at 0 there), each row beside its own
+    # kernel's timing (granite's shapes); K3 in generate (granite's and
+    # moonshot's; MLA's decode launches none)
+    serves = [serve] + moe_serves
     emit(kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
          "flash_attention": fa,
@@ -2271,13 +2671,14 @@ def main() -> int:
          "decode_attention": dec},
         {name: gbdt_launches[name] + sum(r[name] for r in train_runs)
          for name in gbdt_launches} | {
-         "flash_attention":
-             serve["prefill"]["launches"]["flash_attention_tc"],
+         "flash_attention": sum(
+             r["prefill"]["launches"]["flash_attention_tc"] for r in serves),
          "flash_attention_simt": sum(r["flash_attention"]
                                      - r["flash_attention_tc"]
                                      for r in train_runs),
-         "decode_attention":
-             serve["generate"]["launches"]["decode_attention"]}))
+         "decode_attention": sum(
+             r["generate"]["launches"]["decode_attention"]
+             for r in serves)}))
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

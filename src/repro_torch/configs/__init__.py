@@ -5,4 +5,6 @@ the architectures."""
 from repro_torch.configs import (  # noqa: F401
     granite_3_2b,
     h2o_danube_1_8b,
+    moonshot_v1_16b_a3b,
+    deepseek_v3_671b,
 )

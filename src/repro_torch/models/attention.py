@@ -1,5 +1,5 @@
-"""Attention blocks: GQA with full, sliding-window or bidirectional masks
-(the twin of ``repro/models/attention.py``, lines 32-182).
+"""Attention blocks: GQA with full, sliding-window or bidirectional masks,
+and MLA (the twin of ``repro/models/attention.py``).
 
 The full pass (forward, prefill) goes through the flash-attention op and
 decode through the decode-attention op against a KV cache; on CUDA
@@ -8,24 +8,26 @@ keep a ring-buffer cache of ``min(cache_len, window)`` positions: keys
 are stored already rotated at their absolute positions, so the order of
 the buffer does not matter.
 
-MLA (the reference's lines 185-262) is not ported yet and raises. The
-reference's activation-sharding calls are no-ops without rules and are
-dropped until the port's ``parallel/`` slice.
+MLA (DeepSeek-V3): low-rank Q/KV projections with decoupled RoPE keys.
+The full pass expands the latent KV and runs the flash-attention op with
+V zero-padded to the query/key head dim; decode uses the *absorbed*
+form against the compressed (kv_lora + rope) cache, in float32 torch
+ops as the reference's einsums (no kernel). The reference's
+activation-sharding calls are no-ops without rules and are dropped
+until the port's ``parallel/`` slice.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.config.types import ArchConfig, AttentionKind
 from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_rope, norm_apply, norm_spec
 from repro_torch.models.param import ParamSpec
-
-_MLA_TODO = ("MLA attention is not ported yet (ROADMAP Queue 1: the rest "
-             "of the LM stack)")
 
 
 class CacheSpec(NamedTuple):
@@ -36,10 +38,25 @@ class CacheSpec(NamedTuple):
 
 # ------------------------------------------------------------------ GQA spec
 def attn_spec(cfg: ArchConfig) -> Dict:
-    if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(_MLA_TODO)
     d = cfg.d_model
     hd = cfg.resolved_head_dim
+    if cfg.attention == AttentionKind.MLA:
+        m = cfg.mla
+        return {
+            "wq_a": ParamSpec((d, m.q_lora_rank), ("embed", None)),
+            "q_norm": norm_spec(cfg, m.q_lora_rank),
+            "wq_b": ParamSpec((m.q_lora_rank, cfg.n_heads * m.qk_head_dim),
+                              (None, "heads")),
+            "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim),
+                               ("embed", None)),
+            "kv_norm": norm_spec(cfg, m.kv_lora_rank),
+            "wkv_b": ParamSpec(
+                (m.kv_lora_rank,
+                 cfg.n_heads * (m.qk_nope_head_dim + m.v_head_dim)),
+                (None, "heads")),
+            "wo": ParamSpec((cfg.n_heads * m.v_head_dim, d),
+                            ("heads", "embed")),
+        }
     spec = {
         "wq": ParamSpec((d, cfg.n_heads * hd), ("embed", "heads")),
         "wk": ParamSpec((d, cfg.n_kv_heads * hd), ("embed", "kv_heads")),
@@ -85,7 +102,7 @@ def attn_apply(
     positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(_MLA_TODO)
+        return _mla_apply(params, cfg, x, positions)
     s = x.shape[1]
     q = _split_heads(_project(params, x, "wq", "bq"), cfg.n_heads)
     k = _split_heads(_project(params, x, "wk", "bk"), cfg.n_kv_heads)
@@ -105,9 +122,16 @@ def attn_apply(
 def attn_cache_spec(cfg: ArchConfig, batch: int, cache_len: int,
                     dtype: torch.dtype = torch.bfloat16) -> Dict:
     """KV cache specs for one layer: a ring buffer of
-    ``min(cache_len, window)`` positions under a sliding window."""
+    ``min(cache_len, window)`` positions under a sliding window; MLA's
+    compressed (latent, rope key) cache."""
     if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(_MLA_TODO)
+        m = cfg.mla
+        return {
+            "ckv": CacheSpec((batch, cache_len, m.kv_lora_rank), dtype),
+            "krope": CacheSpec((batch, cache_len, m.qk_rope_head_dim),
+                               dtype),
+            "length": CacheSpec((batch,), torch.int32),
+        }
     hd = cfg.resolved_head_dim
     window = _window(cfg)
     eff = min(cache_len, window) if window > 0 else cache_len
@@ -136,7 +160,7 @@ def attn_decode(
     tensors (the caller owns the cache); the returned cache shares them
     and carries ``length + 1``."""
     if cfg.attention == AttentionKind.MLA:
-        raise NotImplementedError(_MLA_TODO)
+        return _mla_decode(params, cfg, x, cache, pos)
     b = x.shape[0]
     q = _split_heads(_project(params, x, "wq", "bq"), cfg.n_heads)
     k = _split_heads(_project(params, x, "wk", "bk"), cfg.n_kv_heads)
@@ -156,3 +180,94 @@ def attn_decode(
     out = decode_attention(q[:, :, 0], cache_k, cache_v, lengths=valid)
     y = _project(params, out.reshape(b, 1, -1), "wo", "bo")
     return y, {"k": cache_k, "v": cache_v, "length": new_len}
+
+
+# ----------------------------------------------------------------- MLA paths
+def _mla_project(params: Mapping, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    m = cfg.mla
+    b, s, _ = x.shape
+    q = norm_apply(params["q_norm"], cfg, x @ params["wq_a"]) @ params["wq_b"]
+    q = q.reshape(b, s, cfg.n_heads, m.qk_head_dim).transpose(1, 2)
+    q_nope = q[..., :m.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., m.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+
+    kv_a = x @ params["wkv_a"]                            # (B,S,lora+rope)
+    ckv = norm_apply(params["kv_norm"], cfg, kv_a[..., :m.kv_lora_rank])
+    k_rope = apply_rope(kv_a[..., m.kv_lora_rank:], positions,
+                        cfg.rope_theta)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def mla_operands(params: Mapping, cfg: ArchConfig, x: torch.Tensor,
+                 positions: torch.Tensor):
+    """The flash-attention operands of MLA's full pass: q and k (B, H, S,
+    qk_head_dim), contiguous, and v zero-padded from v_head_dim to
+    qk_head_dim, so the kernel sees one head dim."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    q_nope, q_rope, ckv, k_rope = _mla_project(params, cfg, x, positions)
+    kv = (ckv @ params["wkv_b"]).reshape(
+        b, s, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim).transpose(1, 2)
+    k_nope = kv[..., :m.qk_nope_head_dim]
+    v = kv[..., m.qk_nope_head_dim:]
+    # decoupled-rope key shared across heads
+    k_rope_h = k_rope[:, None].expand(b, cfg.n_heads, s,
+                                      m.qk_rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    v_p = F.pad(v, (0, m.qk_head_dim - m.v_head_dim))
+    return q, k, v_p
+
+
+def _mla_apply(params: Mapping, cfg: ArchConfig, x: torch.Tensor,
+               positions: Optional[torch.Tensor]) -> torch.Tensor:
+    """Train/prefill: expand the latent KV and run standard attention."""
+    m = cfg.mla
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v_p = mla_operands(params, cfg, x, positions)
+    out = flash_attention(q, k, v_p, causal=True,
+                          scale=float(m.qk_head_dim) ** -0.5)
+    return _merge_heads(out[..., :m.v_head_dim]) @ params["wo"]
+
+
+def _mla_decode(params: Mapping, cfg: ArchConfig, x: torch.Tensor,
+                cache: Dict, pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
+    """Absorbed decode against the compressed (ckv, k_rope) cache, in
+    float32; the new latent and rope key are written in place into slot
+    ``length % cache_len`` of ``cache``'s tensors."""
+    m = cfg.mla
+    b = x.shape[0]
+    q_nope, q_rope, ckv_new, krope_new = _mla_project(
+        params, cfg, x, pos[:, None])
+    # absorb W_kv_b's key half into the query: q_lat = q_nope @ W_uk^T
+    wkv_b = params["wkv_b"].reshape(
+        m.kv_lora_rank, cfg.n_heads, m.qk_nope_head_dim + m.v_head_dim)
+    w_uk = wkv_b[..., :m.qk_nope_head_dim]          # (lora, H, nope)
+    w_uv = wkv_b[..., m.qk_nope_head_dim:]          # (lora, H, v)
+    q_lat = torch.einsum("bhqd,lhd->bhql", q_nope, w_uk)   # (B,H,1,lora)
+
+    ckv, krope = cache["ckv"], cache["krope"]
+    cache_len = ckv.shape[1]
+    slot = (cache["length"] % cache_len).long()
+    bidx = torch.arange(b, device=x.device)
+    ckv[bidx, slot] = ckv_new[:, 0].to(ckv.dtype)
+    krope[bidx, slot] = krope_new[:, 0].to(krope.dtype)
+    new_len = cache["length"] + 1
+    valid = torch.clamp(new_len, max=cache_len)
+
+    scale = float(m.qk_head_dim) ** -0.5
+    ckv32 = ckv.to(torch.float32)
+    logits = (torch.einsum("bhql,bsl->bhqs", q_lat.to(torch.float32), ckv32)
+              + torch.einsum("bhqd,bsd->bhqs", q_rope.to(torch.float32),
+                             krope.to(torch.float32))) * scale
+    mask = (torch.arange(cache_len, device=x.device)[None, None, None, :]
+            < valid[:, None, None, None])
+    logits = torch.where(mask, logits, torch.tensor(-1e30, device=x.device))
+    probs = torch.softmax(logits, dim=-1)
+    lat = torch.einsum("bhqs,bsl->bhql", probs, ckv32)      # (B,H,1,lora)
+    out = torch.einsum("bhql,lhd->bhqd", lat, w_uv.to(torch.float32))
+    y = _merge_heads(out.to(x.dtype)) @ params["wo"]
+    return y, {"ckv": ckv, "krope": krope, "length": new_len}

@@ -4,8 +4,10 @@ port's modules.
 The reference keeps a model's parameters as a pytree of arrays
 (``repro.models.lm.LanguageModel.init``); the port keeps them in
 ``nn.ParameterDict``s. Both use the same names and the same ``(in, out)``
-weight layout, so loading is a copy, leaf by leaf. This is the one
-place that knows the mapping.
+weight layout, so loading is a copy, leaf by leaf: nested dicts (an MoE
+block's router, its ``(E, d, f)``/``(E, f, d)`` expert stacks and
+``shared{i}`` MLPs, MLA's norms) and the MTP head's subtree (never
+stacked) included. This is the one place that knows the mapping.
 """
 from __future__ import annotations
 
@@ -85,3 +87,5 @@ def _copy_params(tree: Mapping, params: Mapping, where: str) -> None:
                          f"got {len(layers)}")
     for i, (dst, src) in enumerate(zip(tree["layers"], layers)):
         _copy(dst, src, f"{where}.layers[{i}]")
+    if "mtp" in tree:
+        _copy(tree["mtp"], params["mtp"], f"{where}.mtp")

@@ -1,19 +1,22 @@
 """The language model of the port (the twin of ``repro/models/lm.py``)
-for the dense GQA family.
+for the dense GQA family and the MoE family (MLA attention and the MTP
+head included).
 
 :class:`LanguageModel` is an ``nn.Module``: embedding, one
 :class:`Block` module per layer in an ``nn.ModuleList`` (the reference
-stacks the layers' params and runs ``lax.scan``), final norm and the
-(tied) LM head. Weights keep the reference's ``(in, out)`` layout and
-are applied as ``x @ w``. Parameters are made without gradients, which
-serving wants; the trainer (``repro_torch.train.step``) turns them on
-with ``model.requires_grad_(True)``. The other families (MoE, SSM,
-hybrid, VLM, audio, MTP) wait for later slices and raise at
-construction.
+stacks the layers' params and runs ``lax.scan``), final norm, the
+(tied) LM head and, where ``cfg.mtp_depth`` is set, the DeepSeek MTP
+head (:class:`MTPHead`). Weights keep the reference's ``(in, out)``
+layout and are applied as ``x @ w``; nested param dicts (an MoE block's
+shared experts, MLA's norms) are nested ``nn.ParameterDict``s.
+Parameters are made without gradients, which serving wants; the trainer
+(``repro_torch.train.step``) turns them on with
+``model.requires_grad_(True)``. The other families (SSM, hybrid, VLM,
+audio) wait for later slices and raise at construction.
 
 Entry points:
   forward(batch, remat)              -> (logits (B, S, V), aux)
-  loss(batch, remat)                 -> mean next-token cross-entropy
+  loss(batch, remat)                 -> cross-entropy + aux (+ 0.3 MTP)
   prefill(batch, cache_len)          -> last-token logits (B, V)
   decode_step(tokens, cache, pos)    -> (logits (B, V), cache)
 
@@ -21,15 +24,17 @@ Entry points:
 block: ``"none"`` keeps every activation; ``"full"`` keeps only each
 block's input and recomputes the rest in backward
 (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` keeps the
-outputs of the matrix products (and of the attention op, whose plain
-version is matrix products) and recomputes the rest, as
+outputs of the matrix products (the expert FFN's einsums among them,
+and the attention op, whose plain version is matrix products) and
+recomputes the rest, as
 ``jax.checkpoint_policies.checkpoint_dots`` does. Recomputation
 repeats the same operations, so no number changes with the policy.
 """
 from __future__ import annotations
 
 import functools
-from typing import Any, Callable, Dict, Iterator, List, Mapping, Tuple
+from typing import (Any, Callable, Dict, Iterator, List, Mapping, Optional,
+                    Tuple)
 
 import torch
 from torch import nn
@@ -40,6 +45,7 @@ from repro_torch.config.types import ArchConfig, AttentionKind, Family
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.param import ParamSpec, init_tensor
 
 
@@ -55,58 +61,78 @@ def _block_kind(cfg: ArchConfig, idx: int) -> str:
 
 
 def _block_spec(cfg: ArchConfig) -> Dict:
-    return {"ln1": L.norm_spec(cfg), "attn": attn.attn_spec(cfg),
-            "ln2": L.norm_spec(cfg), "mlp": L.mlp_spec(cfg)}
+    spec = {"ln1": L.norm_spec(cfg), "attn": attn.attn_spec(cfg),
+            "ln2": L.norm_spec(cfg)}
+    if cfg.moe is not None:
+        spec["moe"] = moe_mod.moe_spec(cfg)
+    else:
+        spec["mlp"] = L.mlp_spec(cfg)
+    return spec
 
 
-def _params(spec: Dict[str, ParamSpec], device: torch.device,
+def _params(spec: Dict, device: torch.device,
             dtype: torch.dtype) -> nn.ParameterDict:
-    """Uninitialized parameters, without gradients, for a dict of specs."""
+    """Uninitialized parameters, without gradients, for a dict of specs
+    (a nested dict becomes a nested ``ParameterDict``). Every parameter
+    takes the model's dtype, the router's float32 spec too (as the
+    reference's ``materialize(..., dtype)``)."""
     return nn.ParameterDict({
-        name: nn.Parameter(torch.empty(s.shape, dtype=dtype, device=device),
-                           requires_grad=False)
+        name: (_params(s, device, dtype) if isinstance(s, dict) else
+               nn.Parameter(torch.empty(s.shape, dtype=dtype, device=device),
+                            requires_grad=False))
         for name, s in spec.items()})
 
 
 def _supported(cfg: ArchConfig) -> None:
-    if cfg.family != Family.DENSE:
+    if cfg.family not in (Family.DENSE, Family.MOE):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family.value} family is not ported yet "
             f"(ROADMAP Queue 1: the rest of the LM stack)")
     if cfg.attention not in (AttentionKind.FULL, AttentionKind.SLIDING,
-                             AttentionKind.BIDIR):
+                             AttentionKind.BIDIR, AttentionKind.MLA):
         raise NotImplementedError(
             f"{cfg.name}: {cfg.attention.value} attention is not ported yet "
             f"(ROADMAP Queue 1: the rest of the LM stack)")
-    if cfg.mtp_depth or cfg.frontend is not None:
+    if cfg.frontend is not None:
         raise NotImplementedError(
-            f"{cfg.name}: MTP heads and modality frontends are not ported "
-            f"yet (ROADMAP Queue 1: the rest of the LM stack)")
+            f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
+            f"Queue 1: the rest of the LM stack)")
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: attention, then the gated MLP."""
+    """One pre-norm decoder layer: attention, then the gated MLP or the
+    mixture of experts."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device,
                  dtype: torch.dtype):
         super().__init__()
         self.cfg = cfg
+        self.ffn = "moe" if cfg.moe is not None else "mlp"
         spec = _block_spec(cfg)
         self.ln1 = _params(spec["ln1"], device, dtype)
         self.attn = _params(spec["attn"], device, dtype)
         self.ln2 = _params(spec["ln2"], device, dtype)
-        self.mlp = _params(spec["mlp"], device, dtype)
+        setattr(self, self.ffn, _params(spec[self.ffn], device, dtype))
 
     def param_tree(self) -> Dict[str, nn.ParameterDict]:
         return {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
-                "mlp": self.mlp}
+                self.ffn: getattr(self, self.ffn)}
 
-    def forward(self, x: torch.Tensor,
-                positions: torch.Tensor) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (y, the router's aux loss, or None for an MLP)."""
+        if self.ffn == "moe":
+            return moe_mod.moe_apply(self.moe, self.cfg, h)
+        return L.mlp_apply(self.mlp, self.cfg, h), None
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """-> (x, the MoE router's aux loss, or None for an MLP)."""
         cfg = self.cfg
         x = x + attn.attn_apply(self.attn, cfg, L.norm_apply(self.ln1, cfg, x),
                                 positions=positions)
-        return x + L.mlp_apply(self.mlp, cfg, L.norm_apply(self.ln2, cfg, x))
+        y, aux = self._ffn(L.norm_apply(self.ln2, cfg, x))
+        return x + y, aux
 
     def decode(self, x: torch.Tensor, cache: Dict,
                pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -114,8 +140,38 @@ class Block(nn.Module):
         y, new = attn.attn_decode(self.attn, cfg,
                                   L.norm_apply(self.ln1, cfg, x), cache, pos)
         x = x + y
-        return x + L.mlp_apply(self.mlp, cfg,
-                               L.norm_apply(self.ln2, cfg, x)), new
+        z, _ = self._ffn(L.norm_apply(self.ln2, cfg, x))
+        return x + z, new
+
+
+def _mtp_spec(cfg: ArchConfig) -> Dict:
+    return {"proj": ParamSpec((2 * cfg.d_model, cfg.d_model),
+                              ("embed", None)),
+            "norm_h": L.norm_spec(cfg), "norm_e": L.norm_spec(cfg),
+            "block": _block_spec(cfg), "final_norm": L.norm_spec(cfg)}
+
+
+class MTPHead(nn.Module):
+    """DeepSeek's multi-token-prediction depth: a projection of the
+    normed hidden stream and next-token embeddings, one block, a final
+    norm; it shares the embedding and the LM head."""
+
+    def __init__(self, cfg: ArchConfig, device: torch.device,
+                 dtype: torch.dtype):
+        super().__init__()
+        spec = _mtp_spec(cfg)
+        self.proj = nn.Parameter(
+            torch.empty(spec["proj"].shape, dtype=dtype, device=device),
+            requires_grad=False)
+        self.norm_h = _params(spec["norm_h"], device, dtype)
+        self.norm_e = _params(spec["norm_e"], device, dtype)
+        self.block = Block(cfg, device, dtype)
+        self.final_norm = _params(spec["final_norm"], device, dtype)
+
+    def param_tree(self) -> Dict[str, Any]:
+        return {"proj": self.proj, "norm_h": self.norm_h,
+                "norm_e": self.norm_e, "block": self.block.param_tree(),
+                "final_norm": self.final_norm}
 
 
 def _pairs(specs, params) -> Iterator[Tuple[ParamSpec, nn.Parameter]]:
@@ -145,19 +201,27 @@ class LanguageModel(nn.Module):
         self.final_norm = _params(L.norm_spec(cfg), self.device, dtype)
         self.layers = nn.ModuleList(Block(cfg, self.device, dtype)
                                     for _ in range(cfg.n_layers))
+        self.mtp = (MTPHead(cfg, self.device, dtype) if cfg.mtp_depth > 0
+                    else None)
 
     # ----------------------------------------------------------------- specs
     def param_specs(self) -> Dict:
         """The reference's spec tree with per-layer dicts (its
-        ``scan_layers=False`` layout)."""
+        ``scan_layers=False`` layout); ``mtp`` after ``layers``."""
         cfg = self.cfg
-        return {"embed": L.embed_spec(cfg), "final_norm": L.norm_spec(cfg),
+        spec = {"embed": L.embed_spec(cfg), "final_norm": L.norm_spec(cfg),
                 "layers": [_block_spec(cfg) for _ in self.kinds]}
+        if self.mtp is not None:
+            spec["mtp"] = _mtp_spec(cfg)
+        return spec
 
     def param_tree(self) -> Dict[str, Any]:
         """The module's parameters in the layout of :meth:`param_specs`."""
-        return {"embed": self.embedding, "final_norm": self.final_norm,
+        tree = {"embed": self.embedding, "final_norm": self.final_norm,
                 "layers": [blk.param_tree() for blk in self.layers]}
+        if self.mtp is not None:
+            tree["mtp"] = self.mtp.param_tree()
+        return tree
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LanguageModel":
@@ -174,20 +238,24 @@ class LanguageModel(nn.Module):
 
     def forward(self, batch: Mapping,
                 remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-        """Full-sequence pass -> (logits (B, S, V), aux loss 0)."""
+        """Full-sequence pass -> (logits (B, S, V), the blocks' summed aux
+        loss; 0 for the dense family)."""
         x = self.embed(batch)
         positions = torch.arange(x.shape[1], device=self.device)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.layers:
-            x = _maybe_remat(blk, remat)(x, positions)
+            x, a = _maybe_remat(blk, remat)(x, positions)
+            if a is not None:
+                aux = aux + a
         x = L.norm_apply(self.final_norm, self.cfg, x)
         logits = L.lm_logits(self.embedding, x)
-        return logits, torch.zeros((), dtype=torch.float32,
-                                   device=self.device)
+        return logits, aux
 
     # ------------------------------------------------------------------ loss
     def loss(self, batch: Mapping, remat: str = "none") -> torch.Tensor:
         """Mean next-token cross-entropy of ``batch["labels"]`` plus the
-        aux loss (0 for the dense family)."""
+        aux loss, plus 0.3 times the MTP loss where there is an MTP
+        head."""
         logits, aux = self.forward(batch, remat=remat)
         labels = torch.as_tensor(batch["labels"], device=self.device)
         total = _xent(logits, labels) + aux
@@ -195,10 +263,25 @@ class LanguageModel(nn.Module):
             total = total + 0.3 * self._mtp_loss(batch, logits)
         return total
 
-    def _mtp_loss(self, batch: Mapping, main_logits: torch.Tensor):
-        raise NotImplementedError(
-            f"{self.cfg.name}: the MTP loss waits for the MTP family "
-            f"(ROADMAP Queue 1: the rest of the LM stack)")
+    def _mtp_loss(self, batch: Mapping,
+                  main_logits: torch.Tensor) -> torch.Tensor:
+        """DeepSeek multi-token prediction: one extra depth, shared head.
+        The normed token embeddings (the reference's proxy of the hidden
+        stream) and the next token's embeddings go through one block to
+        predict the token after next."""
+        cfg = self.cfg
+        mtp = self.mtp.param_tree()
+        emb = self.embed(batch)
+        h = L.norm_apply(mtp["norm_h"], cfg, emb)
+        e_next = L.norm_apply(mtp["norm_e"], cfg, torch.roll(emb, -1, dims=1))
+        x = torch.cat([h, e_next], dim=-1) @ mtp["proj"]
+        x, _ = self.mtp.block(x, torch.arange(x.shape[1],
+                                              device=self.device))
+        x = L.norm_apply(mtp["final_norm"], cfg, x)
+        logits = L.lm_logits(self.embedding, x)
+        labels = torch.as_tensor(batch["labels"], device=self.device)
+        labels2 = torch.roll(labels, -1, dims=1)
+        return _xent(logits[:, :-2], labels2[:, :-2])
 
     # --------------------------------------------------------------- serving
     def cache_spec(self, batch: int, cache_len: int,

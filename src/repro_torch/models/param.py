@@ -64,7 +64,9 @@ def init_tensor(s: ParamSpec, generator: torch.Generator,
     scale = s.init_scale / math.sqrt(max(fan_in, 1))
     w = torch.randn(s.shape, generator=generator, dtype=torch.float32,
                     device=generator.device)
-    return (w * scale).to(device=dev, dtype=dt)
+    # scaled in place: one float32 staging copy of the largest expert
+    # stack (15 GB at deepseek-v3's width) is all the draw holds
+    return w.mul_(scale).to(device=dev, dtype=dt)
 
 
 def materialize(tree, generator: torch.Generator,

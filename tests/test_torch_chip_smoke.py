@@ -181,6 +181,61 @@ def test_lm_phases_on_cpu():
     assert cons["launches"] == none
 
 
+def test_moe_phases_on_cpu():
+    """The MoE family's phases at the reduced configs: K2 at an MLA
+    shape (v padded: its output columns exactly 0), the float32
+    consistency (forward against decode with nothing dropped, MLA's
+    full pass against its absorbed decode, the MoE block against one
+    token at a time, the card's stand-in against the CPU with equal
+    dispatch states), and serving both archs (deepseek cut to depth 1):
+    the prefill's drops counted, its logits equal to the warm-up's bit
+    for bit. On the CPU nothing launches."""
+    moonshot = reduced_config(get_arch("moonshot-v1-16b-a3b"))
+    deepseek = reduced_config(get_arch("deepseek-v3-671b"))
+    fa = chip_smoke.phase_prefill_attention(CPU, deepseek.name, 1, 2, 40,
+                                            24, 16, seed=10, reps=1)
+    assert fa["shape"] == [1, 2, 2, 40, 24] and fa["v_dim"] == 16
+    assert fa["padded_columns_zero"] and fa["max_abs_err"] == 0.0
+    assert fa["launches"] == {"tensor_core": 0, "simt": 0}
+    assert fa["scale"] == 24 ** -0.5 and fa["library_ms"] > 0.0
+    assert fa["bound_ms"] > 0.0 and fa["call_ms"] > 0.0
+    none = {"flash_attention": 0, "flash_attention_tc": 0,
+            "decode_attention": 0}
+    cons = chip_smoke.phase_moe_consistency(
+        CPU, moonshot, deepseek, depth=1, batch=2, n_tokens=6, cache_len=8,
+        seed=12)
+    a = cons["a"]
+    assert a["depth_cut"]["to"] == 1 and a["launches"] == none
+    assert a["moe"]["dropped"] == 0 and a["moe"]["assignments"] == 24
+    assert a["moe"]["capacity_factor"] == moonshot.moe.n_experts
+    assert a["published_capacity"]["capacity_factor"] == 4.0
+    assert a["published_capacity"]["assignments"] == 24
+    assert a["max_abs_err"] <= chip_smoke.DECODE_ATOL
+    mla = cons["b_mla"]
+    assert mla["head_dim"] == 24 and mla["max_abs_err"] <= 1e-5
+    assert mla["launches_full"] == mla["launches_decode"] == none
+    block = cons["c_moe_block"]
+    assert block["dropped"] == 0 and block["aux"] > 0.0
+    assert block["max_abs_err"] <= block["atol"]
+    for row in cons["d_reduced"]:
+        assert row["dispatch_states_equal"] and row["dispatches"] > 0
+        assert row["forward_max_abs_err"] == 0.0
+    serves = []
+    for cfg, cut in chip_smoke.moe_serve_configs(moonshot, deepseek):
+        serves.append(chip_smoke.phase_lm_serve(
+            CPU, cfg, prefill_batch=2, prefill_len=16, n_requests=3,
+            prompt0=4, prompt_step=2, max_new=3, cache_len=32,
+            profile_steps=8, seed=13))
+        assert (cut is None) == (cfg.n_layers == moonshot.n_layers)
+    assert [s["arch"] for s in serves] == [moonshot.name, deepseek.name]
+    for out in serves:
+        pre = out["prefill"]
+        assert pre["bit_equal_to_warm_up"] and pre["launches"] == none
+        assert pre["moe"]["assignments"] > 0 and pre["moe"]["dropped"] >= 0
+        assert out["generate"]["decode_steps"] == 11
+        assert out["generate"]["launches"] == none
+
+
 def test_tensor_core_instruction_counts():
     """``phase_build``'s count of tensor-core instructions in a SASS
     listing, by opcode; None where the toolkit has no ``cuobjdump``."""

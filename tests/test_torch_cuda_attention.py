@@ -5,8 +5,9 @@ kernel is held against its plain torch version on the same card and
 inputs (bfloat16 ``atol=2e-2``, float32 ``atol=2e-5``, the reference's
 tolerances; bfloat16 also within 2e-2 of each output row's largest
 value, since a row that averages many keys has values about as small as
-the absolute tolerance) over head dims 16, 64, 80, 128 and 256, ragged lengths, GQA
-ratios 1, 4 and 8 and the three mask kinds, and each test asserts that
+the absolute tolerance) over head dims 16, 64, 80, 128, 192 (MLA's
+qk_head_dim) and 256, ragged lengths, GQA ratios 1, 4 and 8 and the
+three mask kinds, and each test asserts that
 the kernel launched (its counter moved). Flash attention's two kernels
 are told apart by ``launches["flash_attention_tc"]`` (the tensor-core
 kernel); decode attention's cache splits are checked at their
@@ -65,7 +66,7 @@ def _assert_close(got, want):
 # ----------------------------------------------------------- flash attention
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("hq,hkv", GQA)
-@pytest.mark.parametrize("d", [16, 64, 80, 128])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 192])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(dev, dtype, d, hq, hkv, causal,
                                        window):
@@ -164,7 +165,8 @@ def test_flash_attention_tensor_cores_at_scale(dev, window):
 
 
 # ----------------------------------------------------------- decode attention
-@pytest.mark.parametrize("hq,hkv", GQA + [(24, 2)])   # 12: two group tiles
+# 12: two group tiles; 16/16: moonshot-v1-16b-a3b's MHA decode
+@pytest.mark.parametrize("hq,hkv", GQA + [(24, 2), (16, 16)])
 @pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_matches_plain(dev, dtype, d, hq, hkv):
@@ -418,3 +420,38 @@ def test_train_step_launches_per_remat(dev, remat, per_step):
         assert _max_err(p, want) <= 1e-5
     # the steps moved the weights by more than the bar
     assert max(_max_err(p, p0) for p, p0 in zip(want_p, init)) > 1e-4
+
+
+@pytest.mark.parametrize("name", ["moonshot-v1-16b-a3b", "deepseek-v3-671b"])
+def test_moe_family_on_cuda(dev, name):
+    """The reduced MoE archs on the card against the same weights on the
+    CPU: forward and step-by-step decode logits at ``5e-4``, the router's
+    aux loss at ``rel=1e-6``, the engine's greedy tokens equal; K2 once
+    per layer (float32: SIMT), K3 once per layer per step for moonshot
+    and never for MLA's absorbed decode."""
+    cfg = reduced_config(get_arch(name))
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init(torch.Generator().manual_seed(0))
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    model.load_state_dict(cpu.state_dict())
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12))
+    fa_kernel.reset_launches()
+    dec_kernel.reset_launches()
+    with torch.inference_mode():
+        fwd, aux = model.forward({"tokens": torch.from_numpy(tokens).to(dev)})
+        want, want_aux = cpu.forward({"tokens": torch.from_numpy(tokens)})
+        assert _max_err(fwd.cpu(), want) <= 5e-4
+        assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)
+        assert fa_kernel.launches["flash_attention"] == cfg.n_layers
+        cache = model.init_cache(2, 16, dtype=torch.float32)
+        for t in range(12):
+            lg, cache = model.decode_step(
+                torch.from_numpy(tokens[:, t]).to(dev), cache,
+                torch.full((2,), t, dtype=torch.int32, device=dev))
+            assert _max_err(lg.cpu(), want[:, t]) <= 5e-4
+    per_step = 0 if cfg.mla is not None else cfg.n_layers
+    assert dec_kernel.launches["decode_attention"] == 12 * per_step
+    reqs = [([1, 2, 3], 5), ([7, 8], 5)]
+    out = [[r.out_tokens for r in ServeEngine(m, cache_len=64).generate(
+        [Request(p, n) for p, n in reqs])] for m in (cpu, model)]
+    assert out[0] == out[1]

@@ -75,10 +75,30 @@ TRAINING_MODULES = [
 ]
 
 
+# the MoE family's modules: MoE dispatch, MLA (in the attention module),
+# the model with its MTP head, the two configs
+MOE_MODULES = [
+    "repro_torch.models.moe", "repro_torch.models.attention",
+    "repro_torch.models.lm", "repro_torch.models.convert",
+    "repro_torch.configs.moonshot_v1_16b_a3b",
+    "repro_torch.configs.deepseek_v3_671b",
+]
+
+
 def test_deployment_modules_import_first_without_jax_or_reference():
     """Each module of the deployment, and of the training slice, imports
     first in a fresh interpreter (no eager import cycle), with ``jax``
     and the reference blocked, and pulls in neither."""
+    _import_first(DEPLOYMENT_MODULES + TRAINING_MODULES)
+
+
+def test_moe_family_modules_import_first_without_jax_or_reference():
+    """The MoE family's modules, ``repro_torch.models.moe`` first among
+    them, each alone in a fresh interpreter: no ``jax``, no ``repro``."""
+    _import_first(MOE_MODULES)
+
+
+def _import_first(names):
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
     block = _BLOCKED_IMPORTS.split("\nimport repro_torch\n")[0]
     procs = {name: subprocess.Popen(
@@ -88,7 +108,7 @@ def test_deployment_modules_import_first_without_jax_or_reference():
                          if m.split(".")[0] in ("jax", "jaxlib", "repro")))
         """)], cwd=REPO, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.PIPE, text=True)
-        for name in DEPLOYMENT_MODULES + TRAINING_MODULES}
+        for name in names}
     for name, proc in procs.items():
         out, err = proc.communicate(timeout=300)
         assert proc.returncode == 0, f"{name}: {err}"

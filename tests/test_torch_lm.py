@@ -1,14 +1,17 @@
 """CPU parity of the port's LM serving path with the reference's.
 
-At ``reduced_config`` of granite-3-2b (full causal attention) and
-h2o-danube-1.8b (sliding window 8, untied head), the reference's weights
+At ``reduced_config`` of granite-3-2b (full causal attention),
+h2o-danube-1.8b (sliding window 8, untied head), moonshot-v1-16b-a3b
+(MoE, 4 experts top-2) and deepseek-v3-671b (MLA, MoE with a shared
+expert, the MTP head), the reference's weights
 (``repro``'s ``model.init(PRNGKey(1), dtype=float32)``) go through
 ``load_reference_params`` into the port. Then the forward logits, the
 step-by-step decode logits (danube's ring buffer wraps) and the serving
 engine's greedy tokens must match the reference's, at the decode tests'
 ``atol=5e-4`` (``tests/test_models.py:99``). The reference's forward runs
 once through its Pallas kernels too (``runtime_flags.ATTN_BACKEND``
-patched to ``"pallas"``), so the slice is held against both.
+patched to ``"pallas"``), so the slice is held against both. The MoE
+archs' router aux loss is held to the reference's at ``rel=1e-6``.
 """
 import dataclasses
 
@@ -26,8 +29,8 @@ from repro.models.param import count_tree_params as ref_count_tree_params
 from repro.serve.engine import Request as RefRequest
 from repro.serve.engine import ServeEngine as RefServeEngine
 from repro_torch.config import (ArchConfig, AttentionKind, Family,
-                                SSMConfig, get_arch, list_archs,
-                                reduced_config)
+                                RGLRUConfig, SSMConfig, get_arch,
+                                list_archs, reduced_config)
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.models.convert import load_reference_params
@@ -35,7 +38,8 @@ from repro_torch.models.lm import build_model
 from repro_torch.models.param import count_tree_params
 from repro_torch.serve import Request, ServeEngine
 
-ARCHS = ["granite-3-2b", "h2o-danube-1.8b"]
+ARCHS = ["granite-3-2b", "h2o-danube-1.8b", "moonshot-v1-16b-a3b",
+         "deepseek-v3-671b"]
 B, S = 2, 16
 ATOL = 5e-4
 
@@ -71,7 +75,7 @@ def _tokens(cfg, seed=2, b=B, s=S):
 
 
 def test_arch_configs_match_reference():
-    assert list_archs() == ARCHS
+    assert sorted(list_archs()) == sorted(ARCHS)
     for name in ARCHS:
         assert _as_dict(get_arch(name)) == _as_dict(ref_get_arch(name))
         assert _as_dict(reduced_config(get_arch(name))) == _as_dict(
@@ -97,10 +101,13 @@ def test_param_count_matches_reference(name, full):
 def test_forward_matches_reference(pair, backend, monkeypatch):
     monkeypatch.setattr(runtime_flags, "ATTN_BACKEND", backend)
     tokens = _tokens(pair.cfg)
-    want, _ = pair.ref.forward(pair.params, {"tokens": jnp.asarray(tokens)})
+    want, want_aux = pair.ref.forward(pair.params,
+                                      {"tokens": jnp.asarray(tokens)})
     got, aux = pair.port.forward({"tokens": torch.from_numpy(tokens)})
     assert tuple(got.shape) == (B, S, pair.cfg.vocab_size)
-    assert float(aux) == 0.0
+    # 0 for the dense archs; the router's load-balancing loss for MoE
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-6)
+    assert (float(aux) > 0.0) == (pair.cfg.moe is not None)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
     np.testing.assert_allclose(
         pair.port.prefill({"tokens": torch.from_numpy(tokens)}, 32).numpy(),
@@ -180,3 +187,10 @@ def test_unported_families_raise():
                      ssm=SSMConfig(state_dim=8, head_dim=8))
     with pytest.raises(NotImplementedError, match="ssm"):
         build_model(ssm, device="cpu")
+    hybrid = ArchConfig(name="hybrid", family=Family.HYBRID, n_layers=3,
+                        d_model=32, n_heads=2, n_kv_heads=1, d_ff=64,
+                        vocab_size=16, attention=AttentionKind.SLIDING,
+                        sliding_window=8,
+                        rglru=RGLRUConfig(lru_width=32, attn_window=8))
+    with pytest.raises(NotImplementedError, match="hybrid"):
+        build_model(hybrid, device="cpu")
