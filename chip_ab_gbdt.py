@@ -3,9 +3,9 @@
 
 Times ``gbdt_logits`` and ``gbdt_grid_logits`` at the shapes of CARAT's
 path and runs the ``carat`` phase of ``chip_smoke.py`` once with this
-tree's ``repro_torch`` and once with the baseline tree's, in turns
-(baseline, this, this, baseline), each turn in its own process, so that
-both are measured on the same card within one run. Every turn holds its
+tree's ``repro_torch`` and once with the baseline tree's, in the turns
+of ``chip_ab.py`` (baseline, this, this, baseline, each in its own
+process, on the same card within one run). Every turn holds its
 kernels bit-identical to ``ObliviousGBDT.decision_function`` and to the
 CPU grid scorer, and must make the same CARAT decisions.
 
@@ -22,14 +22,13 @@ card's name and power limit.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 from pathlib import Path
 from typing import Dict
 
 import numpy as np
 
-ROOT = Path(__file__).resolve().parent
+import chip_ab
 
 
 def measure(tree: Path) -> Dict:
@@ -86,45 +85,16 @@ def measure(tree: Path) -> Dict:
     return out
 
 
-def main() -> int:
-    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
-        print(json.dumps(measure(Path(sys.argv[2]))), flush=True)
-        return 0
-    if len(sys.argv) != 2:
-        print(__doc__, file=sys.stderr)
-        return 2
-    import torch
-    if not torch.cuda.is_available():
-        print("chip_ab_gbdt: no CUDA device", file=sys.stderr)
-        return 1
-    base, here = Path(sys.argv[1]).resolve(), ROOT
-    turns = []
-    for label, tree in (("baseline", base), ("this", here), ("this", here),
-                        ("baseline", base)):
-        proc = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--measure",
-             str(tree)], capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            print(proc.stdout + proc.stderr, file=sys.stderr)
-            return 1
-        turn = {"turn": len(turns), "label": label,
-                **json.loads(proc.stdout.strip().splitlines()[-1])}
-        print(json.dumps(turn), flush=True)
-        turns.append(turn)
+def same_decisions(turns) -> Dict:
+    """The trees must make the same CARAT decisions in every turn."""
     decisions = {json.dumps([t["carat"][k] for k in
                              ("decision_count", "actuations", "launches")],
                             sort_keys=True) for t in turns}
     if len(decisions) != 1:
-        print(f"chip_ab_gbdt: the trees made different decisions: "
-              f"{decisions}", file=sys.stderr)
-        return 1
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip()
-    print(json.dumps({"card": smi, "same_decisions": True,
-                      "turns": [t["label"] for t in turns]}), flush=True)
-    return 0
+        raise RuntimeError(f"the trees made different decisions: "
+                           f"{decisions}")
+    return {"same_decisions": True}
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(chip_ab.main(__file__, __doc__, measure, same_decisions))

@@ -50,17 +50,27 @@ paths:
   ``ServeEngine.generate`` on 8 ragged requests for moonshot at full
   width and depth and for deepseek at full width cut to one layer (its
   MTP block kept), dropped assignments counted and two prefills equal
-  bit for bit.
+  bit for bit;
+* the SSM, hybrid, VLM and audio families: flash attention at
+  recurrentgemma-2b's local attention (MQA 10/1, D 256, window 2048, at
+  S 2048 and 4096), paligemma-3b's MQA (8/1, D 256), hubert-xlarge's
+  bidirectional MHA (D 80) and in float32 at D 256 (the SIMT kernel),
+  decode attention at D 256 with groups of 10 and 8; mamba2-370m,
+  recurrentgemma-2b and paligemma-3b in float32 at full width and depth,
+  forward against decode, and the four reduced archs on the card
+  against the CPU; the three served in bfloat16 with granite's traffic;
+  hubert's forward over 4 x 2048 frames.
 
 Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
 launches (the GBDT kernels': the ``carat`` run's, both sharded CARAT
 runs' and the first process run's, its workers' ``gbdt_logits`` calls
 included, and the training pipelines'; flash attention's two kernels
-as two rows: the tensor-core kernel's in the prefills (granite's and
-the MoE family's), the SIMT kernel's in the float32 training steps, each
-beside its own timing at granite's shapes; decode attention's in
-granite's and moonshot's generate) and times, and the last line is
+as two rows: the tensor-core kernel's in the prefills (granite's, the
+MoE family's, the hybrid's and the VLM's) and hubert's encode, the SIMT
+kernel's in the float32 training steps, each beside its own timing at
+granite's shapes; decode attention's in granite's, moonshot's, the
+hybrid's and the VLM's generate) and times, and the last line is
 ``{"ok": true, "device": {...}}``.
 
 Usage (one CUDA device; imports nothing of JAX or of ``repro``)::
@@ -249,6 +259,25 @@ def _ptxas_summary(report: str) -> Dict:
             "spill_store_bytes": sum(spills)}
 
 
+def ptxas_entries(report: str, name: str) -> Dict[str, Dict]:
+    """Registers and spill bytes of each entry function of a ptxas
+    ``-v`` report whose mangled name holds ``name``, keyed by that
+    mangled name."""
+    out = {}
+    for chunk in report.split("Compiling entry function '")[1:]:
+        entry = chunk.split("'", 1)[0]
+        if name not in entry:
+            continue
+        regs = re.search(r"Used (\d+) registers", chunk)
+        stores = re.search(r"(\d+) bytes spill stores", chunk)
+        loads = re.search(r"(\d+) bytes spill loads", chunk)
+        out[entry] = {
+            "registers": int(regs.group(1)) if regs else None,
+            "spill_store_bytes": int(stores.group(1)) if stores else None,
+            "spill_load_bytes": int(loads.group(1)) if loads else None}
+    return out
+
+
 # tensor-core instructions in SASS: warpgroup (wgmma) and warp (mma.sync)
 TENSOR_CORE_OPS = ("HGMMA", "HMMA")
 
@@ -282,7 +311,11 @@ def phase_build() -> Dict:
         path, report = lib.build()
         return {"seconds": time.perf_counter() - t0, "library": path.name,
                 **_ptxas_summary(report),
-                "tensor_core_instructions": sass_tensor_core_counts(path)}
+                "tensor_core_instructions": sass_tensor_core_counts(path),
+                # each panel count of K2's tensor-core kernel (ILi<NP>E:
+                # NP 64-column panels; NP 4 is D 256)
+                "flash_attention_tc_kernel": ptxas_entries(
+                    report, "flash_attention_tc_kernel")}
 
     t0 = time.perf_counter()
     libs = _libraries()
@@ -1357,6 +1390,13 @@ def _range_ms(prof, name: str, cuda: bool) -> Dict:
                         if e.device_type != DeviceType.CPU) / 1e3}
 
 
+def _n_attn(model) -> int:
+    """The attention blocks of a model: one K2 launch each per forward,
+    one K3 launch each per decode step (the SSM and RG-LRU blocks launch
+    neither)."""
+    return sum(kind in ("attn", "attn_local") for kind in model.kinds)
+
+
 def _reset_attn_launches() -> None:
     for k in _attn_kernels():
         k.reset_launches()
@@ -1411,7 +1451,10 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
                          published=None) -> Dict:
     """``cfg`` with float32 weights from a seeded generator (TF32 off):
     the forward's logits at every position against token-by-token
-    ``decode_step``, at the reference's ``atol=5e-4``. For an MoE arch
+    ``decode_step``, at the reference's ``atol=5e-4`` (a VLM's forward
+    with zero patches: its decode embeds text only). Each attention
+    block launches K2's SIMT kernel once and K3 once a token; SSM and
+    RG-LRU blocks launch neither. For an MoE arch
     the forward must drop no assignment (a dropped one would part it
     from decode, whose one token per row always fits). With
     ``published`` (``cfg`` at another capacity factor), a first forward
@@ -1429,6 +1472,10 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
     init_s = time.perf_counter() - t0
     tokens = torch.from_numpy(rng(seed).integers(
         0, cfg.vocab_size, size=(batch, n_tokens))).to(dev)
+    inputs = {"tokens": tokens}
+    if cfg.family.value == "vlm":
+        inputs["patches"] = torch.zeros((batch, 0, cfg.d_model), device=dev)
+    n_attn = _n_attn(model)
     out: Dict = {}
     if published is not None:
         # the blocks read their config at each call: the same weights
@@ -1447,7 +1494,7 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
     worst = 0.0
     with torch.inference_mode():
         with _Dispatches() as disp:
-            fwd, _ = model.forward({"tokens": tokens})
+            fwd, _ = model.forward(inputs)
         cache = model.init_cache(batch, cache_len, dtype=torch.float32)
         for t in range(n_tokens):
             logits, cache = model.decode_step(
@@ -1464,12 +1511,13 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
     gate(worst <= DECODE_ATOL, f"decode differs from forward by {worst}")
     if dev.type == "cuda":
         # float32: the SIMT kernel of flash_attention
-        gate(launches == {"flash_attention": cfg.n_layers,
+        gate(launches == {"flash_attention": n_attn,
                           "flash_attention_tc": 0,
-                          "decode_attention": cfg.n_layers * n_tokens},
+                          "decode_attention": n_attn * n_tokens},
              f"attention launches {launches}")
     out = {"phase": "lm_consistency", "arch": cfg.name,
-           "params": cfg.param_count(), "dtype": "float32",
+           "params": cfg.param_count(), "layers": cfg.n_layers,
+           "attention_layers": n_attn, "dtype": "float32",
            "batch": batch, "tokens": n_tokens, "cache_len": cache_len,
            "init_s": init_s, "max_abs_err": worst, "atol": DECODE_ATOL,
            "max_abs_logit": scale, "launches": launches, **out}
@@ -1504,12 +1552,22 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     model.init(_generator(dev, seed))
     r = rng(seed)
     v = cfg.vocab_size
+    n_attn = _n_attn(model)
     out: Dict = {"phase": "lm_serve", "arch": cfg.name,
-                 "params": cfg.param_count(), "dtype": "bfloat16"}
+                 "params": cfg.param_count(), "layers": cfg.n_layers,
+                 "attention_layers": n_attn, "dtype": "bfloat16"}
 
-    # (a) prefill
+    # (a) prefill; a VLM's prompt is its image's patches, then text, in
+    # prefill_len positions
+    n_text = prefill_len - (cfg.frontend_tokens
+                            if cfg.family.value == "vlm" else 0)
     batch = {"tokens": torch.from_numpy(
-        r.integers(0, v, size=(prefill_batch, prefill_len))).to(dev)}
+        r.integers(0, v, size=(prefill_batch, n_text))).to(dev)}
+    if cfg.family.value == "vlm":
+        batch["patches"] = torch.randn(
+            (prefill_batch, cfg.frontend_tokens, cfg.d_model),
+            generator=_generator(dev, seed + 1), device=dev).to(
+                torch.bfloat16)
     with torch.inference_mode():
         with _Dispatches() as disp:                 # warm-up
             first = model.prefill(batch, prefill_len).clone()
@@ -1595,11 +1653,12 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     gate(len(flags) == steps and bool(torch.stack(flags).all().item()),
          "a decode step's logits are not finite")
     if dev.type == "cuda":
-        # bfloat16: every prefill launch on the tensor-core kernel; MLA's
-        # absorbed decode launches no decode_attention
-        per_step = 0 if cfg.mla is not None else cfg.n_layers
-        gate(launches_a == {"flash_attention": cfg.n_layers,
-                            "flash_attention_tc": cfg.n_layers,
+        # bfloat16: every prefill launch on the tensor-core kernel, one
+        # per attention block; MLA's absorbed decode launches no
+        # decode_attention, nor do SSM and RG-LRU blocks
+        per_step = 0 if cfg.mla is not None else n_attn
+        gate(launches_a == {"flash_attention": n_attn,
+                            "flash_attention_tc": n_attn,
                             "decode_attention": 0},
              f"prefill attention launches {launches_a}")
         gate(launches_b == {"flash_attention": 0, "flash_attention_tc": 0,
@@ -1653,62 +1712,81 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
 
 # ------------------------------------------- LM serving: the MoE family
 def phase_prefill_attention(dev, arch: str, b: int, h: int, s: int, d: int,
-                            v_dim: int, seed: int, reps: int) -> Dict:
-    """``flash_attention`` at an MoE arch's prefill shape: bfloat16,
-    causal, Hq = Hkv = ``h``, head dim ``d``, the scale ``d ** -0.5``
-    passed explicitly as the model passes it. Where ``v_dim < d`` (MLA)
-    v has ``v_dim`` columns zero-padded to ``d``, as ``mla_operands``
-    builds it, and the output's padded columns must be exactly 0. The
-    tensor-core kernel must take it (``takes_tensor_cores`` and its
-    launch counter). Timed by graph replay, with the wrapper's host time
-    per call (``call_ms``), the plain version's and SDPA's time and the
-    bound from the shapes."""
+                            v_dim: int, seed: int, reps: int,
+                            hkv: Optional[int] = None, causal: bool = True,
+                            window: int = 0, dtype: str = "bfloat16"
+                            ) -> Dict:
+    """``flash_attention`` at an arch's prefill shape: ``h`` query heads
+    over ``hkv`` kv heads (``h`` by default), head dim ``d``, causal or
+    bidirectional, a sliding ``window`` or none, the scale ``d ** -0.5``
+    passed explicitly as the MLA model passes it (the kernel's default).
+    Where ``v_dim < d`` (MLA) v has ``v_dim`` columns zero-padded to
+    ``d``, as ``mla_operands`` builds it, and the output's padded columns
+    must be exactly 0. In bfloat16 the tensor-core kernel must take it
+    (``takes_tensor_cores`` and its launch counter), in float32 the SIMT
+    kernel. Timed by graph replay, with the wrapper's host time per call
+    (``call_ms``), the plain version's and SDPA's time (a boolean mask
+    for a window) and the bound from the shapes (each (query, key) pair
+    the masks keep: 4·d operations at the type's peak rate)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.kernel import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                          flash_attention_ref)
+    hkv = h if hkv is None else hkv
+    dt = getattr(torch, dtype)
     g = _generator(dev, seed)
-    q, k, v = _randn(g, dev, torch.bfloat16, (b, h, s, d), (b, h, s, d),
-                     (b, h, s, v_dim))
+    q, k, v = _randn(g, dev, dt, (b, h, s, d), (b, hkv, s, d),
+                     (b, hkv, s, v_dim))
     v = F.pad(v, (0, d - v_dim))
     scale = float(d) ** -0.5
+    kw = dict(causal=causal, window=window, scale=scale)
     tc_rule = fa.takes_tensor_cores(q, k, v)
     before = dict(fa.launches)
-    got = flash_attention(q, k, v, causal=True, scale=scale)
+    got = flash_attention(q, k, v, **kw)
     sync(dev)
     tc = fa.launches["flash_attention_tc"] - before["flash_attention_tc"]
     launches = {"tensor_core": tc, "simt": fa.launches["flash_attention"]
                 - before["flash_attention"] - tc}
+    what = f"flash_attention {arch} {dtype} D={d} S={s}"
     if dev.type == "cuda":
-        gate(tc_rule and launches == {"tensor_core": 1, "simt": 0},
-             f"flash_attention {arch} D={d}: takes_tensor_cores {tc_rule}, "
-             f"launches {launches}")
+        want = ({"tensor_core": 1, "simt": 0} if dtype == "bfloat16" else
+                {"tensor_core": 0, "simt": 1})
+        gate(tc_rule == (dtype == "bfloat16") and launches == want,
+             f"{what}: takes_tensor_cores {tc_rule}, launches {launches}")
     padded_zero = bool((got[..., v_dim:] == 0).all().item())
-    gate(padded_zero, f"flash_attention {arch}: padded v columns gave "
-                      f"non-zero output")
-    close = _check_close(f"flash_attention {arch} D={d}", got,
-                         flash_attention_ref(q, k, v, causal=True,
-                                             scale=scale))
+    gate(padded_zero, f"{what}: padded v columns gave non-zero output")
+    close = _check_close(what, got, flash_attention_ref(q, k, v, **kw))
     del got
-    run = lambda: flash_attention(q, k, v, causal=True, scale=scale)  # noqa
+    run = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
     ms = graph_ms(run, dev, reps)
     call_ms = time_ms(run, dev, reps)
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal=True,
-                                                   scale=scale), dev, 1)
-    library_ms, library_note = _library_ms(dev, reps, q, k, v,
-                                           timer=graph_ms, is_causal=True,
-                                           scale=scale)
-    pairs = b * h * _attn_pairs(s, s, True, 0)
+    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), dev, 1)
+    if window > 0:
+        lib_kw = {"attn_mask": attention_mask(s, s, causal=causal,
+                                              window=window, device=dev)}
+        lib_note = "a boolean window mask"
+    else:
+        lib_kw, lib_note = {"is_causal": causal}, None
+    library_ms, gqa_note = _library_ms(dev, reps, q, k, v, timer=graph_ms,
+                                       scale=scale, **lib_kw)
+    pairs = b * h * _attn_pairs(s, s, causal, window)
+    size = q.element_size()
     return {"phase": "flash_attention", "arch": arch,
-            "shape": [b, h, h, s, d], "v_dim": v_dim, "dtype": "bfloat16",
-            "causal": True, "scale": scale, "takes_tensor_cores": tc_rule,
-            "launches": launches, "padded_columns_zero": padded_zero,
-            **close, "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "shape": [b, h, hkv, s, d], "v_dim": v_dim, "dtype": dtype,
+            "causal": causal, "window": window, "scale": scale,
+            "takes_tensor_cores": tc_rule, "launches": launches,
+            "padded_columns_zero": padded_zero, **close, "ms": ms,
+            "call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
-            "library": f"scaled_dot_product_attention ({library_note})",
-            **bound(2 * (2 * q.numel() + k.numel() + v.numel()),
-                    4 * d * pairs, H100_BF16_OPS_PER_S)}
+            "library": "scaled_dot_product_attention ("
+                       + ", ".join(n for n in (gqa_note, lib_note) if n)
+                       + ")",
+            **bound(size * (2 * q.numel() + k.numel() + v.numel()),
+                    4 * d * pairs,
+                    H100_BF16_OPS_PER_S if dtype == "bfloat16"
+                    else H100_F32_OPS_PER_S)}
 
 
 def _mla_consistency(dev, cfg, batch: int, n_tokens: int, cache_len: int,
@@ -1797,8 +1875,10 @@ def _moe_block_consistency(dev, cfg, batch: int, n_tokens: int,
 def _reduced_card_vs_cpu(dev, cfg, batch: int, n_tokens: int,
                          cache_len: int, seed: int) -> Dict:
     """The reduced ``cfg`` on the card against the same float32 weights
-    on the CPU: forward and decode logits at DECODE_ATOL, the aux loss at
-    ``rel=1e-6``, every MoE layer's integer dispatch state ``==``."""
+    on the CPU: forward and (for a decoder) decode logits at
+    DECODE_ATOL, the aux loss at ``rel=1e-6``, every MoE layer's integer
+    dispatch state ``==``. The inputs are the family's: frames (audio),
+    random patches before the tokens (VLM), tokens."""
     import torch
     from repro_torch.models.lm import build_model
     cpu_dev = torch.device("cpu")
@@ -1806,27 +1886,39 @@ def _reduced_card_vs_cpu(dev, cfg, batch: int, n_tokens: int,
     cpu.init(torch.Generator().manual_seed(seed))
     card = build_model(cfg, device=dev, dtype=torch.float32)
     card.load_state_dict(cpu.state_dict())
-    tokens = rng(seed).integers(0, cfg.vocab_size, size=(batch, n_tokens))
+    r = rng(seed)
+    tokens = r.integers(0, cfg.vocab_size, size=(batch, n_tokens))
+    inputs = {"tokens": tokens}
+    if cfg.family.value == "audio":
+        inputs = {"frames": r.standard_normal(
+            (batch, n_tokens, cfg.d_model)).astype(np.float32)}
+    elif cfg.family.value == "vlm":
+        inputs["patches"] = r.standard_normal(
+            (batch, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
     runs = []
     for model, where in ((cpu, cpu_dev), (card, dev)):
-        toks = torch.from_numpy(tokens).to(where)
+        on = {k: torch.from_numpy(v).to(where) for k, v in inputs.items()}
+        steps = []
         with torch.inference_mode(), _Dispatches(keep_states=True) as disp:
-            fwd, aux = model.forward({"tokens": toks})
-            cache = model.init_cache(batch, cache_len, dtype=torch.float32)
-            steps = []
-            for t in range(n_tokens):
-                logits, cache = model.decode_step(
-                    toks[:, t], cache,
-                    torch.full((batch,), t, dtype=torch.int32, device=where))
-                steps.append(logits.cpu())
-        runs.append((fwd.cpu(), float(aux), torch.stack(steps, 1),
-                     disp.states))
+            fwd, aux = model.forward(on)
+            if cfg.decoder:
+                cache = model.init_cache(batch, cache_len,
+                                         dtype=torch.float32)
+                for t in range(n_tokens):
+                    logits, cache = model.decode_step(
+                        on["tokens"][:, t], cache,
+                        torch.full((batch,), t, dtype=torch.int32,
+                                   device=where))
+                    steps.append(logits.cpu())
+        runs.append((fwd.cpu(), float(aux),
+                     torch.stack(steps, 1) if steps else None, disp.states))
     (fwd_c, aux_c, dec_c, st_c), (fwd_g, aux_g, dec_g, st_g) = runs
-    fwd_err, dec_err = _max_err(fwd_g, fwd_c), _max_err(dec_g, dec_c)
+    fwd_err = _max_err(fwd_g, fwd_c)
+    dec_err = _max_err(dec_g, dec_c) if cfg.decoder else None
     same = len(st_c) == len(st_g) and all(
         all(torch.equal(a, b) for a, b in zip(x, y))
         for x, y in zip(st_c, st_g))
-    gate(fwd_err <= DECODE_ATOL and dec_err <= DECODE_ATOL,
+    gate(fwd_err <= DECODE_ATOL and (dec_err or 0.0) <= DECODE_ATOL,
          f"{cfg.name}: card vs CPU forward {fwd_err}, decode {dec_err}")
     gate(abs(aux_g - aux_c) <= 1e-6 * abs(aux_c),
          f"{cfg.name}: aux {aux_g} on the card, {aux_c} on the CPU")
@@ -1906,6 +1998,146 @@ def moe_serve_configs(moonshot, deepseek):
                         "the MTP block holds 24.97 B (49.9 GB in bf16); "
                         "depth 2 needs 73 GB of weights, no room for the "
                         "prefill's activations on one 80 GB card"})]
+
+
+# ------------------------- LM serving: the SSM, hybrid, VLM, audio families
+def phase_encode(dev, cfg, batch: int, frames: int, seed: int,
+                 reps: int) -> Dict:
+    """An encoder (``decoder=False``: hubert) with bfloat16 weights:
+    ``forward`` over ``batch`` x ``frames`` seeded random frames, one
+    warm-up and ``reps`` timed runs (host clock to the device's end),
+    each attention block one launch of K2's tensor-core kernel; the
+    logits finite and (B, frames, V); peak device bytes."""
+    import torch
+    from repro_torch.models.lm import build_model
+    t_phase = time.perf_counter()
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(_generator(dev, seed))
+    x = {"frames": torch.randn((batch, frames, cfg.d_model),
+                               generator=_generator(dev, seed + 1),
+                               device=dev).to(torch.bfloat16)}
+    with torch.inference_mode():
+        first, _ = model.forward(x)
+        gate(tuple(first.shape) == (batch, frames, cfg.vocab_size)
+             and bool(torch.isfinite(first).all().item()),
+             "encoder logits are not finite (B, S, V)")
+        del first
+        sync(dev)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        _reset_attn_launches()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            model.forward(x)
+        sync(dev)
+        s = (time.perf_counter() - t0) / reps
+        launches = _attn_launches()
+    n_attn = _n_attn(model)
+    if dev.type == "cuda":
+        gate(launches == {"flash_attention": n_attn * reps,
+                          "flash_attention_tc": n_attn * reps,
+                          "decode_attention": 0},
+             f"encoder attention launches {launches}")
+    return {"phase": "lm_encode", "arch": cfg.name,
+            "params": cfg.param_count(), "layers": cfg.n_layers,
+            "dtype": "bfloat16", "batch": batch, "frames": frames,
+            "reps": reps, "ms": s * 1e3, "frames_per_s": batch * frames / s,
+            "launches": launches,
+            "launches_per_forward": {k: n // reps for k, n in
+                                     launches.items()},
+            "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
+                                  if dev.type == "cuda" else None),
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def phase_family_consistency(dev, archs, reduced, batch: int,
+                             n_tokens: int, cache_len: int,
+                             seed: int) -> Dict:
+    """The SSM, hybrid and VLM families in float32 (TF32 off) at full
+    width and depth: each of ``archs`` forward against token-by-token
+    decode (``phase_lm_consistency``: each attention block one launch of
+    K2's SIMT kernel, at D 256 for the hybrid and the VLM, and K3 once a
+    token), then each of ``reduced`` on the card against the CPU."""
+    import torch
+    from repro_torch.config import reduced_config
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    out: Dict = {"phase": "family_consistency", "dtype": "float32"}
+    for i, cfg in enumerate(archs):
+        out[cfg.name] = phase_lm_consistency(
+            dev, cfg, batch=batch, n_tokens=n_tokens, cache_len=cache_len,
+            seed=seed + i)
+        _free(dev)
+    out["reduced"] = [
+        _reduced_card_vs_cpu(dev, reduced_config(c), batch, n_tokens,
+                             cache_len, seed + 10 + i)
+        for i, c in enumerate(reduced)]
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+def family_phases(dev, get_arch, profile_steps: int) -> Dict[str, Dict]:
+    """The phases of the SSM, hybrid, VLM and audio families, each
+    emitted as it ends, with its seconds (``phase_s``): K2 and K3 at
+    their shapes, the float32 consistency, bfloat16 serving of mamba2,
+    recurrentgemma and paligemma with granite's traffic, and hubert's
+    encode. Returns them by name for the kernel line."""
+    mamba = get_arch("mamba2-370m")
+    rg = get_arch("recurrentgemma-2b")
+    pali = get_arch("paligemma-3b")
+    hubert = get_arch("hubert-xlarge")
+    win = rg.rglru.attn_window
+    out: Dict[str, Dict] = {}
+
+    def run(name: str, fn: Callable[..., Dict], *args, **kw) -> Dict:
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        res.setdefault("phase_s", time.perf_counter() - t0)
+        emit(res)
+        out[name] = res
+        _free(dev)
+        return res
+
+    # K2: the hybrid's local attention (MQA 10/1, D 256, window 2048; at
+    # S 4096 the window bites), the VLM's MQA (8/1, D 256; 256 patches +
+    # 1792 tokens), hubert's bidirectional MHA (16/16, D 80: two panels,
+    # 48 zero columns), and the SIMT kernel in float32 at D 256
+    hd = rg.resolved_head_dim
+    run("fa_rg", phase_prefill_attention, dev, rg.name, 4, rg.n_heads,
+        2048, hd, hd, seed=21, reps=10, hkv=rg.n_kv_heads, window=win)
+    run("fa_rg_4k", phase_prefill_attention, dev, rg.name, 4, rg.n_heads,
+        4096, hd, hd, seed=22, reps=5, hkv=rg.n_kv_heads, window=win)
+    run("fa_pali", phase_prefill_attention, dev, pali.name, 4,
+        pali.n_heads, 2048, pali.resolved_head_dim,
+        pali.resolved_head_dim, seed=23, reps=10, hkv=pali.n_kv_heads)
+    run("fa_hubert", phase_prefill_attention, dev, hubert.name, 4,
+        hubert.n_heads, 2048, hubert.resolved_head_dim,
+        hubert.resolved_head_dim, seed=24, reps=10, causal=False)
+    run("fa_simt_d256", phase_prefill_attention, dev, rg.name, 2,
+        rg.n_heads, 512, hd, hd, seed=25, reps=5, hkv=rg.n_kv_heads,
+        window=win, dtype="float32")
+    # K3: group 10 (two group tiles, 8 + 2) and group 8, D 256, the
+    # path's ring buffer of 1024 (the window is 2048) with lengths 512,
+    # then a ragged 4096 cache
+    run("dec_rg", phase_decode_attention, dev, 8, rg.n_heads,
+        rg.n_kv_heads, hd, path_s=1024, path_len=512, s=4096, step=37,
+        seed=26, reps=200)
+    run("dec_pali", phase_decode_attention, dev, 8, pali.n_heads,
+        pali.n_kv_heads, pali.resolved_head_dim, path_s=1024, path_len=512,
+        s=4096, step=37, seed=27, reps=200)
+    run("consistency", phase_family_consistency, dev, [mamba, rg, pali],
+        [mamba, rg, pali, hubert], batch=2, n_tokens=16, cache_len=32,
+        seed=28)
+    for cfg in (mamba, rg, pali):
+        # granite's traffic
+        run(f"serve_{cfg.name}", phase_lm_serve, dev, cfg,
+            prefill_batch=4, prefill_len=2048, n_requests=8, prompt0=128,
+            prompt_step=48, max_new=64, cache_len=1024,
+            profile_steps=profile_steps, seed=29)
+    run("encode", phase_encode, dev, hubert, batch=4, frames=2048, seed=30,
+        reps=5)
+    return out
 
 
 # ------------------------------------------------------- LM training path
@@ -2656,14 +2888,21 @@ def main() -> int:
         moe_serves.append(out)
         _free(dev)
 
+    # the SSM, hybrid, VLM and audio families: K2 and K3 at their shapes,
+    # the float32 consistency, serving mamba2-370m, recurrentgemma-2b and
+    # paligemma-3b at full width and depth, hubert-xlarge's encode
+    family = family_phases(dev, get_arch, PROFILE_STEPS)
+
     # each kernel's launches summed over the paths that drive it: K1 and
     # K1b on the CARAT runs and the training pipelines; K2's tensor-core
-    # kernel in the bf16 prefills (granite's and the MoE family's), its
-    # SIMT kernel in the float32 training steps ((a) and (c); the
-    # tensor-core kernel is gated at 0 there), each row beside its own
-    # kernel's timing (granite's shapes); K3 in generate (granite's and
-    # moonshot's; MLA's decode launches none)
-    serves = [serve] + moe_serves
+    # kernel in the bf16 prefills (granite's, the MoE family's, the
+    # hybrid's and the VLM's) and hubert's encode, its SIMT kernel in the
+    # float32 training steps ((a) and (c); the tensor-core kernel is
+    # gated at 0 there), each row beside its own kernel's timing
+    # (granite's shapes); K3 in generate (granite's, moonshot's, the
+    # hybrid's and the VLM's; MLA's decode and mamba2's launch none)
+    serves = [serve] + moe_serves + [family[f"serve_{name}"] for name in (
+        "mamba2-370m", "recurrentgemma-2b", "paligemma-3b")]
     emit(kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
          "flash_attention": fa,
@@ -2672,7 +2911,8 @@ def main() -> int:
         {name: gbdt_launches[name] + sum(r[name] for r in train_runs)
          for name in gbdt_launches} | {
          "flash_attention": sum(
-             r["prefill"]["launches"]["flash_attention_tc"] for r in serves),
+             r["prefill"]["launches"]["flash_attention_tc"] for r in serves)
+         + family["encode"]["launches"]["flash_attention_tc"],
          "flash_attention_simt": sum(r["flash_attention"]
                                      - r["flash_attention_tc"]
                                      for r in train_runs),

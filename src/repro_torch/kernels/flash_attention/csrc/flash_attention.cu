@@ -38,7 +38,12 @@
 //   from shared memory: a K tile stored [keys][D] is already the K-major
 //   B operand. O += P V is wgmma with P from registers (the float32 S
 //   fragment packed to bf16 pairs in place as the A operand) and V from
-//   shared memory as an MN-major B operand (the transpose bit). The head
+//   shared memory as an MN-major B operand (the transpose bit). P enters
+//   as two bf16 terms, P rounded and the rounding's remainder, each one
+//   wgmma: the Pallas kernel multiplies P V in float32, and one bf16 P
+//   (off by up to 2^-9) moves a bf16 output of magnitude 4 or more
+//   across a rounding boundary (a 1/32 error, past the 2e-2 tolerance);
+//   the two terms hold P to about 2^-17. The head
 //   dim is padded with zeros to 64-column panels, each row of a panel 128
 //   bytes, one 128-byte swizzle atom: the cp.async stores write chunk c
 //   of row r at chunk c ^ (r % 8), the layout the descriptors' 128-byte
@@ -432,6 +437,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// (x0, x1) as two packed bf16 pairs: the rounded values, and the
+// remainders x - rounded, rounded in turn (hi + lo holds x to ~2^-17)
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(x0 - __low2float(h), x1 - __high2float(h));
+}
+
 // rows [row0, row0 + ROWS) of a (positions, D) operand into NP swizzled
 // panels at dst; rows at or past n_rows and columns past d are zeros
 template <int NP, int ROWS>
@@ -623,15 +637,15 @@ __global__ void __launch_bounds__(kThreads, NP == 1 ? 2 : 1)
             o[p][4 * j + 2 * i + 1] *= alpha[i];
           }
 
-      // P as the A operand: the S fragment of keys 16 kk .. packed in place
-      uint32_t pa[4][4];
+      // P as the A operand: the S fragment of keys 16 kk .. packed in
+      // place, as its bf16 rounding (pa) and the remainder (pr)
+      uint32_t pa[4][4], pr[4][4];
 #pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        pa[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
-        pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
-        pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
-        pa[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
-      }
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          split_bf16(s[8 * kk + 2 * q], s[8 * kk + 2 * q + 1], pa[kk][q],
+                     pr[kk][q]);
 
       // O += P V, one 64-column panel of the head dim at a time
 #pragma unroll
@@ -640,11 +654,13 @@ __global__ void __launch_bounds__(kThreads, NP == 1 ? 2 : 1)
 #pragma unroll
       for (int p = 0; p < NP; ++p)
 #pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-          wgmma_rs(o[p], pa[kk],
-                   sw128_desc(vs + p * (kBK * kRowBytes) +
-                                  kk * 16 * kRowBytes,
-                              kBK * kRowBytes, 1024));
+        for (int kk = 0; kk < 4; ++kk) {
+          const uint64_t dv = sw128_desc(
+              vs + p * (kBK * kRowBytes) + kk * 16 * kRowBytes,
+              kBK * kRowBytes, 1024);
+          wgmma_rs(o[p], pa[kk], dv);
+          wgmma_rs(o[p], pr[kk], dv);
+        }
       wgmma_commit();
       wgmma_wait_0();
 #pragma unroll

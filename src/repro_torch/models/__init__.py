@@ -1,4 +1,5 @@
-"""The LM stack of the port: the dense GQA family's serving path."""
+"""The LM stack of the port: one composable stack for the dense GQA, MoE,
+SSM, RG-LRU hybrid, VLM and audio families."""
 from repro_torch.models.lm import LanguageModel, build_model
 from repro_torch.models.param import ParamSpec, materialize, spec_tree_map
 

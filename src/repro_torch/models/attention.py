@@ -1,12 +1,15 @@
-"""Attention blocks: GQA with full, sliding-window or bidirectional masks,
-and MLA (the twin of ``repro/models/attention.py``).
+"""Attention blocks: GQA with full, sliding-window, local or bidirectional
+masks, and MLA (the twin of ``repro/models/attention.py``).
 
 The full pass (forward, prefill) goes through the flash-attention op and
 decode through the decode-attention op against a KV cache; on CUDA
 tensors both are the port's hand-written kernels. Sliding-window archs
 keep a ring-buffer cache of ``min(cache_len, window)`` positions: keys
 are stored already rotated at their absolute positions, so the order of
-the buffer does not matter.
+the buffer does not matter. ``window_override`` sets the window of one
+block whatever ``cfg.attention`` says: the hybrid family's local-attention
+blocks pass ``cfg.rglru.attn_window`` (``AttentionKind.LOCAL`` alone means
+no window, as in the reference).
 
 MLA (DeepSeek-V3): low-rank Q/KV projections with decoupled RoPE keys.
 The full pass expands the latent KV and runs the flash-attention op with
@@ -90,7 +93,9 @@ def _project(params: Mapping, x: torch.Tensor, w: str,
     return y + params[bias] if bias in params else y
 
 
-def _window(cfg: ArchConfig) -> int:
+def _window(cfg: ArchConfig, window_override: Optional[int] = None) -> int:
+    if window_override is not None:
+        return window_override
     return cfg.sliding_window if cfg.attention == AttentionKind.SLIDING else 0
 
 
@@ -100,6 +105,7 @@ def attn_apply(
     cfg: ArchConfig,
     x: torch.Tensor,                      # (B, S, E)
     positions: Optional[torch.Tensor] = None,
+    window_override: Optional[int] = None,
 ) -> torch.Tensor:
     if cfg.attention == AttentionKind.MLA:
         return _mla_apply(params, cfg, x, positions)
@@ -114,12 +120,13 @@ def attn_apply(
         k = apply_rope(k, positions, cfg.rope_theta)
     causal = cfg.attention != AttentionKind.BIDIR
     out = flash_attention(q, k, v, causal=causal,
-                          window=_window(cfg))
+                          window=_window(cfg, window_override))
     return _project(params, _merge_heads(out), "wo", "bo")
 
 
 # ------------------------------------------------------------- GQA decode
 def attn_cache_spec(cfg: ArchConfig, batch: int, cache_len: int,
+                    window_override: Optional[int] = None,
                     dtype: torch.dtype = torch.bfloat16) -> Dict:
     """KV cache specs for one layer: a ring buffer of
     ``min(cache_len, window)`` positions under a sliding window; MLA's
@@ -133,7 +140,7 @@ def attn_cache_spec(cfg: ArchConfig, batch: int, cache_len: int,
             "length": CacheSpec((batch,), torch.int32),
         }
     hd = cfg.resolved_head_dim
-    window = _window(cfg)
+    window = _window(cfg, window_override)
     eff = min(cache_len, window) if window > 0 else cache_len
     return {
         "k": CacheSpec((batch, cfg.n_kv_heads, eff, hd), dtype),
@@ -154,11 +161,15 @@ def attn_decode(
     x: torch.Tensor,                      # (B, 1, E)
     cache: Dict,
     pos: torch.Tensor,                    # (B,) absolute positions
+    window_override: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict]:
     """One decode step of one layer. The new key and value are written in
     place into the ring-buffer slot ``length % cache_len`` of ``cache``'s
     tensors (the caller owns the cache); the returned cache shares them
-    and carries ``length + 1``."""
+    and carries ``length + 1``. The ring buffer's size is the window, set
+    by :func:`attn_cache_spec`'s ``window_override``: this function's
+    ``window_override`` is kept for the reference's signature only and
+    is not read."""
     if cfg.attention == AttentionKind.MLA:
         return _mla_decode(params, cfg, x, cache, pos)
     b = x.shape[0]

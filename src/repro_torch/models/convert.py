@@ -6,11 +6,18 @@ The reference keeps a model's parameters as a pytree of arrays
 ``nn.ParameterDict``s. Both use the same names and the same ``(in, out)``
 weight layout, so loading is a copy, leaf by leaf: nested dicts (an MoE
 block's router, its ``(E, d, f)``/``(E, f, d)`` expert stacks and
-``shared{i}`` MLPs, MLA's norms) and the MTP head's subtree (never
-stacked) included. This is the one place that knows the mapping.
+``shared{i}`` MLPs, MLA's norms), the MTP head's subtree (never
+stacked), the SSM's and the RG-LRU's leaves, the frontend's projection
+and the audio MLP's biases included. The reference stacks the layers of
+a homogeneous stack (every leaf with a leading layer axis: the dense,
+MoE, SSM and audio families) and keeps the hybrid's per-layer list;
+both load. Every leaf takes the model's dtype, the reference's float32
+specs too, as its ``materialize(..., dtype)`` casts them. This is the
+one place that knows the mapping.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Any, Dict, List, Mapping
 
 import numpy as np
@@ -43,14 +50,18 @@ def _copy(dst, src: Any, where: str) -> None:
         for k in dst.keys():
             _copy(dst[k], src[k], f"{where}.{k}")
         return
-    arr = np.array(src)                  # a writable copy for torch
+    arr = np.asarray(src)
     if arr.dtype.kind not in "biu":
         # floats, and NumPy's bfloat16 of the reference, through float32
-        arr = arr.astype(np.float32)
+        arr = arr.astype(np.float32, copy=False)
     if tuple(arr.shape) != tuple(dst.shape):
         raise ValueError(f"{where}: shape {arr.shape}, expected "
                          f"{tuple(dst.shape)}")
-    dst.copy_(torch.from_numpy(arr).to(device=dst.device, dtype=dst.dtype))
+    with warnings.catch_warnings():
+        # read only: copy_ reads the array, so it needs no host copy
+        warnings.filterwarnings("ignore", message=".*not writable")
+        dst.copy_(torch.from_numpy(arr).to(device=dst.device,
+                                           dtype=dst.dtype))
 
 
 def load_reference_params(model: LanguageModel,

@@ -15,7 +15,7 @@ from typing import Dict, Mapping, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config.types import ArchConfig
+from repro_torch.config.types import ArchConfig, Family
 from repro_torch.models.param import ParamSpec
 
 F32 = torch.float32
@@ -50,9 +50,18 @@ def norm_apply(params: Mapping, cfg: ArchConfig,
 
 # ----------------------------------------------------------------------- MLP
 def mlp_spec(cfg: ArchConfig, d_ff: Optional[int] = None) -> Dict:
-    """Gated (SwiGLU/GeGLU) MLP of the llama-family archs (the audio
-    family's plain MLP is not ported yet)."""
+    """Gated (SwiGLU/GeGLU) for silu/gelu llama-family; plain for HuBERT
+    (with biases where ``cfg.use_bias``)."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
+    if cfg.family == Family.AUDIO:
+        spec = {
+            "wi": ParamSpec((d, f), ("embed", "ffn")),
+            "wo": ParamSpec((f, d), ("ffn", "embed")),
+        }
+        if cfg.use_bias:
+            spec["bi"] = ParamSpec((f,), ("ffn",), init="zeros")
+            spec["bo"] = ParamSpec((d,), ("embed",), init="zeros")
+        return spec
     return {
         "wg": ParamSpec((d, f), ("embed", "ffn")),
         "wi": ParamSpec((d, f), ("embed", "ffn")),
@@ -68,8 +77,16 @@ def _act(cfg: ArchConfig, x: torch.Tensor) -> torch.Tensor:
 
 def mlp_apply(params: Mapping, cfg: ArchConfig,
               x: torch.Tensor) -> torch.Tensor:
-    g = _act(cfg, x @ params["wg"])
-    return (g * (x @ params["wi"])) @ params["wo"]
+    if "wg" in params:
+        g = _act(cfg, x @ params["wg"])
+        return (g * (x @ params["wi"])) @ params["wo"]
+    h = x @ params["wi"]
+    if "bi" in params:
+        h = h + params["bi"]
+    y = _act(cfg, h) @ params["wo"]
+    if "bo" in params:
+        y = y + params["bo"]
+    return y
 
 
 # ----------------------------------------------------------------- embedding
@@ -79,6 +96,10 @@ def embed_spec(cfg: ArchConfig) -> Dict:
     if not cfg.tie_embeddings:
         spec["head"] = ParamSpec((cfg.d_model, cfg.vocab_size),
                                  ("embed", "vocab"))
+    if cfg.frontend is not None:
+        # modality stub: precomputed frame/patch embeddings -> d_model
+        spec["frontend_proj"] = ParamSpec((cfg.d_model, cfg.d_model),
+                                          ("embed", None))
     return spec
 
 
@@ -86,6 +107,13 @@ def embed_tokens(params: Mapping, tokens: torch.Tensor) -> torch.Tensor:
     """Activations follow the parameter dtype (bf16 at scale, f32 in
     tests)."""
     return params["tokens"][tokens]
+
+
+def embed_frontend(params: Mapping, feats: torch.Tensor) -> torch.Tensor:
+    """Project precomputed modality embeddings (audio frames, image
+    patches) into the LM stream, in the parameters' dtype."""
+    proj = params["frontend_proj"]
+    return feats.to(proj.dtype) @ proj
 
 
 def lm_logits(params: Mapping, x: torch.Tensor) -> torch.Tensor:

@@ -1,18 +1,21 @@
 """The language model of the port (the twin of ``repro/models/lm.py``)
-for the dense GQA family and the MoE family (MLA attention and the MTP
-head included).
+for all six families: dense GQA, MoE (MLA attention and the MTP head
+included), SSM (mamba2's SSD), the RG-LRU hybrid (recurrentgemma's 1:2
+pattern of recurrent and local-attention blocks), the VLM (precomputed
+image patches prepended to the text) and the audio encoder (precomputed
+frames, bidirectional, no decode).
 
-:class:`LanguageModel` is an ``nn.Module``: embedding, one
-:class:`Block` module per layer in an ``nn.ModuleList`` (the reference
-stacks the layers' params and runs ``lax.scan``), final norm, the
+:class:`LanguageModel` is an ``nn.Module``: embedding (with the modality
+frontend's projection), one :class:`Block` module per layer in an
+``nn.ModuleList`` (the reference stacks a homogeneous stack's params and
+runs ``lax.scan``, and loops over the hybrid's list), final norm, the
 (tied) LM head and, where ``cfg.mtp_depth`` is set, the DeepSeek MTP
 head (:class:`MTPHead`). Weights keep the reference's ``(in, out)``
 layout and are applied as ``x @ w``; nested param dicts (an MoE block's
 shared experts, MLA's norms) are nested ``nn.ParameterDict``s.
 Parameters are made without gradients, which serving wants; the trainer
 (``repro_torch.train.step``) turns them on with
-``model.requires_grad_(True)``. The other families (SSM, hybrid, VLM,
-audio) wait for later slices and raise at construction.
+``model.requires_grad_(True)``.
 
 Entry points:
   forward(batch, remat)              -> (logits (B, S, V), aux)
@@ -20,9 +23,15 @@ Entry points:
   prefill(batch, cache_len)          -> last-token logits (B, V)
   decode_step(tokens, cache, pos)    -> (logits (B, V), cache)
 
+``batch`` holds ``tokens`` (and ``patches`` for the VLM) or ``frames``
+(audio). Decode embeds tokens alone, as the reference's: the VLM's
+serving is text-only. Every cache tensor (KV ring buffers, SSM and
+RG-LRU states, conv histories) is updated in place and keeps its
+address from step to step.
+
 ``remat`` is the reference's rematerialization policy, applied per
-block: ``"none"`` keeps every activation; ``"full"`` keeps only each
-block's input and recomputes the rest in backward
+block of every kind: ``"none"`` keeps every activation; ``"full"``
+keeps only each block's input and recomputes the rest in backward
 (``torch.utils.checkpoint``, non-reentrant); ``"dots"`` keeps the
 outputs of the matrix products (the expert FFN's einsums among them,
 and the attention op, whose plain version is matrix products) and
@@ -41,11 +50,13 @@ from torch import nn
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from repro_torch.config.types import ArchConfig, AttentionKind, Family
+from repro_torch.config.types import ArchConfig, Family
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.param import ParamSpec, init_tensor
 
 
@@ -60,7 +71,12 @@ def _block_kind(cfg: ArchConfig, idx: int) -> str:
     return "attn"
 
 
-def _block_spec(cfg: ArchConfig) -> Dict:
+def _block_spec(cfg: ArchConfig, kind: str) -> Dict:
+    if kind == "ssm":
+        return {"ln1": L.norm_spec(cfg), "ssm": ssm_mod.ssm_spec(cfg)}
+    if kind == "rec":
+        return {"ln1": L.norm_spec(cfg), "rec": rglru_mod.rglru_spec(cfg),
+                "ln2": L.norm_spec(cfg), "mlp": L.mlp_spec(cfg)}
     spec = {"ln1": L.norm_spec(cfg), "attn": attn.attn_spec(cfg),
             "ln2": L.norm_spec(cfg)}
     if cfg.moe is not None:
@@ -74,8 +90,9 @@ def _params(spec: Dict, device: torch.device,
             dtype: torch.dtype) -> nn.ParameterDict:
     """Uninitialized parameters, without gradients, for a dict of specs
     (a nested dict becomes a nested ``ParameterDict``). Every parameter
-    takes the model's dtype, the router's float32 spec too (as the
-    reference's ``materialize(..., dtype)``)."""
+    takes the model's dtype, the float32 specs too (the router, the SSM's
+    ``A_log``/``D``/``dt_bias``, the RG-LRU's ``lam``), as the
+    reference's ``materialize(..., dtype)``."""
     return nn.ParameterDict({
         name: (_params(s, device, dtype) if isinstance(s, dict) else
                nn.Parameter(torch.empty(s.shape, dtype=dtype, device=device),
@@ -83,62 +100,66 @@ def _params(spec: Dict, device: torch.device,
         for name, s in spec.items()})
 
 
-def _supported(cfg: ArchConfig) -> None:
-    if cfg.family not in (Family.DENSE, Family.MOE):
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family.value} family is not ported yet "
-            f"(ROADMAP Queue 1: the rest of the LM stack)")
-    if cfg.attention not in (AttentionKind.FULL, AttentionKind.SLIDING,
-                             AttentionKind.BIDIR, AttentionKind.MLA):
-        raise NotImplementedError(
-            f"{cfg.name}: {cfg.attention.value} attention is not ported yet "
-            f"(ROADMAP Queue 1: the rest of the LM stack)")
-    if cfg.frontend is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends are not ported yet (ROADMAP "
-            f"Queue 1: the rest of the LM stack)")
+def _window(cfg: ArchConfig, kind: str) -> Optional[int]:
+    """The window an attention block of ``kind`` overrides ``cfg``'s
+    with: the hybrid's ``attn_window`` for its local-attention blocks,
+    else None. Its forward and its cache's ring buffer both take it
+    from here; decode follows the buffer's size."""
+    return cfg.rglru.attn_window if kind == "attn_local" else None
 
 
 class Block(nn.Module):
-    """One pre-norm decoder layer: attention, then the gated MLP or the
-    mixture of experts."""
+    """One pre-norm layer of one kind (``_block_kind``): ``"attn"``
+    (attention, then the MLP or the mixture of experts), ``"attn_local"``
+    (the same with the hybrid's window), ``"ssm"`` (the SSD mixer alone)
+    or ``"rec"`` (the RG-LRU block, then the MLP)."""
 
     def __init__(self, cfg: ArchConfig, device: torch.device,
-                 dtype: torch.dtype):
+                 dtype: torch.dtype, kind: str = "attn"):
         super().__init__()
         self.cfg = cfg
-        self.ffn = "moe" if cfg.moe is not None else "mlp"
-        spec = _block_spec(cfg)
-        self.ln1 = _params(spec["ln1"], device, dtype)
-        self.attn = _params(spec["attn"], device, dtype)
-        self.ln2 = _params(spec["ln2"], device, dtype)
-        setattr(self, self.ffn, _params(spec[self.ffn], device, dtype))
+        self.kind = kind
+        spec = _block_spec(cfg, kind)
+        self.names = tuple(spec)
+        for name, s in spec.items():
+            setattr(self, name, _params(s, device, dtype))
 
     def param_tree(self) -> Dict[str, nn.ParameterDict]:
-        return {"ln1": self.ln1, "attn": self.attn, "ln2": self.ln2,
-                self.ffn: getattr(self, self.ffn)}
+        return {name: getattr(self, name) for name in self.names}
 
     def _ffn(self, h: torch.Tensor
              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """-> (y, the router's aux loss, or None for an MLP)."""
-        if self.ffn == "moe":
+        if "moe" in self.names:
             return moe_mod.moe_apply(self.moe, self.cfg, h)
         return L.mlp_apply(self.mlp, self.cfg, h), None
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """-> (x, the MoE router's aux loss, or None for an MLP)."""
+        """-> (x, the MoE router's aux loss, or None)."""
         cfg = self.cfg
-        x = x + attn.attn_apply(self.attn, cfg, L.norm_apply(self.ln1, cfg, x),
-                                positions=positions)
+        h = L.norm_apply(self.ln1, cfg, x)
+        if self.kind == "ssm":
+            return x + ssm_mod.ssm_apply(self.ssm, cfg, h), None
+        if self.kind == "rec":
+            x = x + rglru_mod.rglru_apply(self.rec, cfg, h)
+        else:
+            x = x + attn.attn_apply(self.attn, cfg, h, positions=positions,
+                                    window_override=_window(cfg, self.kind))
         y, aux = self._ffn(L.norm_apply(self.ln2, cfg, x))
         return x + y, aux
 
     def decode(self, x: torch.Tensor, cache: Dict,
                pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
         cfg = self.cfg
-        y, new = attn.attn_decode(self.attn, cfg,
-                                  L.norm_apply(self.ln1, cfg, x), cache, pos)
+        h = L.norm_apply(self.ln1, cfg, x)
+        if self.kind == "ssm":
+            y, new = ssm_mod.ssm_decode(self.ssm, cfg, h, cache)
+            return x + y, new
+        if self.kind == "rec":
+            y, new = rglru_mod.rglru_decode(self.rec, cfg, h, cache)
+        else:
+            y, new = attn.attn_decode(self.attn, cfg, h, cache, pos)
         x = x + y
         z, _ = self._ffn(L.norm_apply(self.ln2, cfg, x))
         return x + z, new
@@ -148,7 +169,8 @@ def _mtp_spec(cfg: ArchConfig) -> Dict:
     return {"proj": ParamSpec((2 * cfg.d_model, cfg.d_model),
                               ("embed", None)),
             "norm_h": L.norm_spec(cfg), "norm_e": L.norm_spec(cfg),
-            "block": _block_spec(cfg), "final_norm": L.norm_spec(cfg)}
+            "block": _block_spec(cfg, "attn"),
+            "final_norm": L.norm_spec(cfg)}
 
 
 class MTPHead(nn.Module):
@@ -192,15 +214,14 @@ class LanguageModel(nn.Module):
     def __init__(self, cfg: ArchConfig, device: DeviceLike = None,
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        _supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
         self.kinds = tuple(_block_kind(cfg, i) for i in range(cfg.n_layers))
         self.embedding = _params(L.embed_spec(cfg), self.device, dtype)
         self.final_norm = _params(L.norm_spec(cfg), self.device, dtype)
-        self.layers = nn.ModuleList(Block(cfg, self.device, dtype)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, self.device, dtype, kind)
+                                    for kind in self.kinds)
         self.mtp = (MTPHead(cfg, self.device, dtype) if cfg.mtp_depth > 0
                     else None)
 
@@ -210,7 +231,7 @@ class LanguageModel(nn.Module):
         ``scan_layers=False`` layout); ``mtp`` after ``layers``."""
         cfg = self.cfg
         spec = {"embed": L.embed_spec(cfg), "final_norm": L.norm_spec(cfg),
-                "layers": [_block_spec(cfg) for _ in self.kinds]}
+                "layers": [_block_spec(cfg, k) for k in self.kinds]}
         if self.mtp is not None:
             spec["mtp"] = _mtp_spec(cfg)
         return spec
@@ -233,8 +254,18 @@ class LanguageModel(nn.Module):
 
     # --------------------------------------------------------------- forward
     def embed(self, batch: Mapping) -> torch.Tensor:
+        """The input stream: projected ``frames`` (audio), or token
+        embeddings with the projected ``patches`` before them (VLM)."""
+        if self.cfg.family == Family.AUDIO:
+            frames = torch.as_tensor(batch["frames"], device=self.device)
+            return L.embed_frontend(self.embedding, frames)
         tokens = torch.as_tensor(batch["tokens"], device=self.device)
-        return L.embed_tokens(self.embedding, tokens.long())
+        x = L.embed_tokens(self.embedding, tokens.long())
+        if self.cfg.family == Family.VLM:
+            patches = L.embed_frontend(self.embedding, torch.as_tensor(
+                batch["patches"], device=self.device))
+            x = torch.cat([patches.to(x.dtype), x], dim=1)
+        return x
 
     def forward(self, batch: Mapping,
                 remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -258,6 +289,9 @@ class LanguageModel(nn.Module):
         head."""
         logits, aux = self.forward(batch, remat=remat)
         labels = torch.as_tensor(batch["labels"], device=self.device)
+        if self.cfg.family == Family.VLM:
+            # the image prefix carries no next-token loss
+            logits = logits[:, -labels.shape[1]:]
         total = _xent(logits, labels) + aux
         if self.cfg.mtp_depth > 0:
             total = total + 0.3 * self._mtp_loss(batch, logits)
@@ -286,8 +320,23 @@ class LanguageModel(nn.Module):
     # --------------------------------------------------------------- serving
     def cache_spec(self, batch: int, cache_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> List[Dict]:
-        return [attn.attn_cache_spec(self.cfg, batch, cache_len, dtype=dtype)
-                for _ in self.kinds]
+        """Per-layer cache specs by block kind: KV ring buffers (the
+        local-attention blocks' of ``min(cache_len, attn_window)``
+        positions), the SSM's and RG-LRU's constant-size states."""
+        cfg = self.cfg
+        per_layer = []
+        for kind in self.kinds:
+            if kind == "ssm":
+                per_layer.append(ssm_mod.ssm_cache_spec(cfg, batch,
+                                                        dtype=dtype))
+            elif kind == "rec":
+                per_layer.append(rglru_mod.rglru_cache_spec(cfg, batch,
+                                                            dtype=dtype))
+            else:
+                per_layer.append(attn.attn_cache_spec(
+                    cfg, batch, cache_len, dtype=dtype,
+                    window_override=_window(cfg, kind)))
+        return per_layer
 
     def init_cache(self, batch: int, cache_len: int,
                    dtype: torch.dtype = torch.bfloat16) -> List[Dict]:
@@ -297,7 +346,8 @@ class LanguageModel(nn.Module):
     def decode_step(self, tokens, cache: List[Dict],
                     pos) -> Tuple[torch.Tensor, List[Dict]]:
         """tokens: (B,) int; pos: (B,) int32 absolute positions.
-        -> (logits (B, V), cache); the KV tensors are updated in place."""
+        -> (logits (B, V), cache); the cache's tensors are updated in
+        place."""
         tokens = torch.as_tensor(tokens, device=self.device).long()
         pos = torch.as_tensor(pos, device=self.device)
         x = L.embed_tokens(self.embedding, tokens[:, None])

@@ -66,7 +66,10 @@ def make_train_step(model: LanguageModel, run: RunConfig) -> Callable:
 
     def value_and_grad(params: List[torch.Tensor], batch: Dict):
         loss = loss_fn(batch)
-        return loss.detach(), list(torch.autograd.grad(loss, params))
+        # a parameter the loss does not read (the token embedding of an
+        # audio encoder fed frames) gets a zero gradient, as under jax.grad
+        return loss.detach(), list(torch.autograd.grad(
+            loss, params, materialize_grads=True))
 
     def train_step(state: Dict[str, Any],
                    batch: Mapping) -> Tuple[Dict, Dict]:

@@ -236,6 +236,102 @@ def test_moe_phases_on_cpu():
         assert out["generate"]["launches"] == none
 
 
+def test_family_phases_on_cpu(monkeypatch):
+    """The SSM, hybrid, VLM and audio families' phases (``family_phases``)
+    at the reduced configs, their sequence lengths, requests and repeats
+    cut to a CPU's size: K2 at every shape kind (the hybrid's window, the
+    VLM's MQA, hubert's bidirectional MHA, float32), K3 at both group
+    shapes, the float32 consistency (no attention launch for mamba2's
+    blocks), serving the three decoders (the VLM's prefill with its
+    patches) and hubert's encode; each phase carries its seconds and the
+    kernel line takes their rows. On the CPU nothing launches."""
+    fa = chip_smoke.phase_prefill_attention
+    dec = chip_smoke.phase_decode_attention
+    serve, enc = chip_smoke.phase_lm_serve, chip_smoke.phase_encode
+
+    def small_fa(dev, arch, b, h, s, d, v_dim, seed, reps, **kw):
+        if kw.get("window"):
+            kw["window"] = 8
+        return fa(dev, arch, b, h, s // 64, d, v_dim, seed, 1, **kw)
+
+    monkeypatch.setattr(chip_smoke, "phase_prefill_attention", small_fa)
+    monkeypatch.setattr(
+        chip_smoke, "phase_decode_attention",
+        lambda dev, b, hq, hkv, d, seed, reps, **kw: dec(
+            dev, b, hq, hkv, d, path_s=64, path_len=32, s=128, step=3,
+            seed=seed, reps=2))
+    monkeypatch.setattr(
+        chip_smoke, "phase_lm_serve",
+        lambda dev, cfg, **kw: serve(dev, cfg, **{
+            **kw, "prefill_len": 48, "n_requests": 3, "prompt0": 4,
+            "prompt_step": 3, "max_new": 3, "cache_len": 32}))
+    monkeypatch.setattr(
+        chip_smoke, "phase_encode",
+        lambda dev, cfg, batch, frames, seed, reps: enc(dev, cfg, 2, 24,
+                                                        seed, 2))
+    fam = chip_smoke.family_phases(
+        CPU, lambda name: reduced_config(get_arch(name)), 2)
+    none = {"flash_attention": 0, "flash_attention_tc": 0,
+            "decode_attention": 0}
+    assert all(r["phase_s"] > 0.0 for r in fam.values())
+    assert fam["fa_hubert"]["causal"] is False
+    assert fam["fa_rg"]["window"] == 8 and fam["fa_pali"]["window"] == 0
+    assert fam["fa_simt_d256"]["dtype"] == "float32"
+    assert not fam["fa_simt_d256"]["takes_tensor_cores"]
+    assert fam["dec_rg"]["shape"][1:3] == [4, 1]
+    for r in fam.values():
+        if r["phase"] == "flash_attention":
+            assert r["launches"] == {"tensor_core": 0, "simt": 0}
+            assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0.0
+    cons = fam["consistency"]
+    mamba = cons["mamba2-370m-smoke"]
+    assert mamba["attention_layers"] == 0 and mamba["launches"] == none
+    for name in ("mamba2-370m-smoke", "recurrentgemma-2b-smoke",
+                 "paligemma-3b-smoke"):
+        assert cons[name]["max_abs_err"] <= chip_smoke.DECODE_ATOL
+    # the phase reduces the configs it is given (here reduced already)
+    assert [r["arch"] for r in cons["reduced"]] == [
+        f"{name}-smoke-smoke" for name in ("mamba2-370m",
+                                           "recurrentgemma-2b",
+                                           "paligemma-3b", "hubert-xlarge")]
+    assert cons["reduced"][-1]["decode_max_abs_err"] is None
+    for name in ("mamba2-370m", "recurrentgemma-2b", "paligemma-3b"):
+        out = fam[f"serve_{name}-smoke"]
+        assert out["prefill"]["launches"] == none
+        assert out["generate"]["launches"] == none
+        assert out["generate"]["decode_steps"] == 10 + 3
+    assert fam["serve_paligemma-3b-smoke"]["attention_layers"] == 2
+    assert fam["encode"]["launches"] == none
+    assert fam["encode"]["frames"] == 24
+    line = chip_smoke.kernel_line(
+        {"gbdt_logits": fam["fa_rg"], "gbdt_grid_logits": fam["fa_pali"],
+         "flash_attention": fam["fa_hubert"],
+         "flash_attention_simt": fam["fa_simt_d256"],
+         "decode_attention": fam["dec_rg"]},
+        {name: 0 for name in chip_smoke.KERNELS})
+    assert all(set(row) == KEYS for row in line["kernels"])
+
+
+def test_ptxas_entries():
+    """``phase_build``'s registers and spills of each entry of a ptxas
+    ``-v`` report whose mangled name holds a kernel's name."""
+    report = (
+        "ptxas info    : Compiling entry function '_Z3fooILi4EEv' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for _Z3fooILi4EEv\n"
+        "    0 bytes stack frame, 8 bytes spill stores, 16 bytes spill "
+        "loads\n"
+        "ptxas info    : Used 255 registers, used 1 barriers\n"
+        "ptxas info    : Compiling entry function '_Z3barv' for 'sm_90a'\n"
+        "ptxas info    : Used 40 registers\n")
+    assert chip_smoke.ptxas_entries(report, "foo") == {
+        "_Z3fooILi4EEv": {"registers": 255, "spill_store_bytes": 8,
+                          "spill_load_bytes": 16}}
+    assert chip_smoke.ptxas_entries(report, "bar") == {
+        "_Z3barv": {"registers": 40, "spill_store_bytes": None,
+                    "spill_load_bytes": None}}
+
+
 def test_tensor_core_instruction_counts():
     """``phase_build``'s count of tensor-core instructions in a SASS
     listing, by opcode; None where the toolkit has no ``cuobjdump``."""

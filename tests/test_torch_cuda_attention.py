@@ -6,8 +6,9 @@ inputs (bfloat16 ``atol=2e-2``, float32 ``atol=2e-5``, the reference's
 tolerances; bfloat16 also within 2e-2 of each output row's largest
 value, since a row that averages many keys has values about as small as
 the absolute tolerance) over head dims 16, 64, 80, 128, 192 (MLA's
-qk_head_dim) and 256, ragged lengths, GQA ratios 1, 4 and 8 and the
-three mask kinds, and each test asserts that
+qk_head_dim) and 256, ragged lengths, GQA ratios 1, 4 and 8 (and 10,
+recurrentgemma's MQA, in decode) and the three mask kinds, and each test
+asserts that
 the kernel launched (its counter moved). Flash attention's two kernels
 are told apart by ``launches["flash_attention_tc"]`` (the tensor-core
 kernel); decode attention's cache splits are checked at their
@@ -17,6 +18,8 @@ JAX::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_attention.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -66,7 +69,7 @@ def _assert_close(got, want):
 # ----------------------------------------------------------- flash attention
 @pytest.mark.parametrize("causal,window", MASKS)
 @pytest.mark.parametrize("hq,hkv", GQA)
-@pytest.mark.parametrize("d", [16, 64, 80, 128, 192])
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 192, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_matches_plain(dev, dtype, d, hq, hkv, causal,
                                        window):
@@ -164,9 +167,32 @@ def test_flash_attention_tensor_cores_at_scale(dev, window):
                                            window=window))
 
 
+@pytest.mark.parametrize("hq,hkv,s,d,causal,window", [
+    (10, 1, 4096, 256, True, 2048),     # recurrentgemma's local attention
+    (8, 1, 2048, 256, True, 0),         # paligemma's MQA
+    (16, 16, 2048, 80, False, 0)])      # hubert: two panels, 48 zero cols
+def test_flash_attention_tensor_cores_at_the_families_shapes(
+        dev, hq, hkv, s, d, causal, window):
+    """The tensor-core kernel at the D 256 (four panels) and D 80 (the
+    padded-column path) prefill shapes of the SSM-era families, one batch
+    row, at the long-row bar and the row rule: early causal rows average
+    few keys, so some outputs reach |4| and more, where one bf16 ulp is
+    1/32."""
+    q, k, v = _normal(dev, 31 + d, torch.bfloat16, (1, hq, s, d),
+                      (1, hkv, s, d), (1, hkv, s, d))
+    before = fa_kernel.launches["flash_attention_tc"]
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize(dev)
+    assert fa_kernel.launches["flash_attention_tc"] == before + 1
+    _assert_close(got, flash_attention_ref(q, k, v, causal=causal,
+                                           window=window,
+                                           scale=float(d) ** -0.5))
+
+
 # ----------------------------------------------------------- decode attention
-# 12: two group tiles; 16/16: moonshot-v1-16b-a3b's MHA decode
-@pytest.mark.parametrize("hq,hkv", GQA + [(24, 2), (16, 16)])
+# 12: two group tiles; 16/16: moonshot-v1-16b-a3b's MHA decode; 10/1:
+# recurrentgemma's MQA (two group tiles, 8 + 2)
+@pytest.mark.parametrize("hq,hkv", GQA + [(24, 2), (16, 16), (10, 1)])
 @pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_matches_plain(dev, dtype, d, hq, hkv):
@@ -451,6 +477,64 @@ def test_moe_family_on_cuda(dev, name):
             assert _max_err(lg.cpu(), want[:, t]) <= 5e-4
     per_step = 0 if cfg.mla is not None else cfg.n_layers
     assert dec_kernel.launches["decode_attention"] == 12 * per_step
+    reqs = [([1, 2, 3], 5), ([7, 8], 5)]
+    out = [[r.out_tokens for r in ServeEngine(m, cache_len=64).generate(
+        [Request(p, n) for p, n in reqs])] for m in (cpu, model)]
+    assert out[0] == out[1]
+
+
+@pytest.mark.parametrize("name,depth", [("mamba2-370m", None),
+                                        ("recurrentgemma-2b", 3),
+                                        ("paligemma-3b", None),
+                                        ("hubert-xlarge", None)])
+def test_new_families_on_cuda(dev, name, depth):
+    """The reduced SSM, hybrid (3 layers: its local-attention block),
+    VLM and audio archs on the card against the same weights on the CPU:
+    forward logits (the VLM's with patches, hubert's over frames) and,
+    for the decoders, step-by-step decode logits at ``5e-4`` and the
+    engine's greedy tokens equal; K2 once per attention block (float32:
+    SIMT), K3 once per attention block per step, neither for SSM and
+    RG-LRU blocks."""
+    cfg = reduced_config(get_arch(name))
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init(torch.Generator().manual_seed(0))
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    model.load_state_dict(cpu.state_dict())
+    n_attn = sum(kind.startswith("attn") for kind in model.kinds)
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 12))
+    batch = {"tokens": tokens}
+    if cfg.family.value == "audio":
+        batch = {"frames": rng.standard_normal(
+            (2, 12, cfg.d_model)).astype(np.float32)}
+    elif cfg.family.value == "vlm":
+        batch["patches"] = rng.standard_normal(
+            (2, cfg.frontend_tokens, cfg.d_model)).astype(np.float32)
+    fa_kernel.reset_launches()
+    dec_kernel.reset_launches()
+    with torch.inference_mode():
+        fwd, _ = model.forward({k: torch.from_numpy(v).to(dev)
+                                for k, v in batch.items()})
+        want, _ = cpu.forward({k: torch.from_numpy(v)
+                               for k, v in batch.items()})
+        assert _max_err(fwd.cpu(), want) <= 5e-4
+        assert fa_kernel.launches == {"flash_attention": n_attn,
+                                      "flash_attention_tc": 0}
+        if not cfg.decoder:
+            return
+        text = {"tokens": torch.from_numpy(tokens)}
+        if cfg.family.value == "vlm":
+            text["patches"] = torch.zeros((2, 0, cfg.d_model))
+        want, _ = cpu.forward(text)
+        cache = model.init_cache(2, 16, dtype=torch.float32)
+        for t in range(12):
+            lg, cache = model.decode_step(
+                torch.from_numpy(tokens[:, t]).to(dev), cache,
+                torch.full((2,), t, dtype=torch.int32, device=dev))
+            assert _max_err(lg.cpu(), want[:, t]) <= 5e-4
+    assert dec_kernel.launches["decode_attention"] == 12 * n_attn
     reqs = [([1, 2, 3], 5), ([7, 8], 5)]
     out = [[r.out_tokens for r in ServeEngine(m, cache_len=64).generate(
         [Request(p, n) for p, n in reqs])] for m in (cpu, model)]

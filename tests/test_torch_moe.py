@@ -39,6 +39,7 @@ from repro.config.types import MLAConfig as RefMLAConfig
 from repro.config.types import MoEConfig as RefMoEConfig
 from repro.config.types import RunConfig as RefRunConfig
 from repro.config.types import ShapeConfig as RefShapeConfig
+from repro.config.types import TrainConfig as RefTrainConfig
 from repro.models import attention as ref_attn
 from repro.models import moe as ref_moe
 from repro.models import runtime_flags
@@ -48,7 +49,8 @@ from repro.train.optimizer import AdamWConfig as RefAdamWConfig
 from repro.train.state import TrainState as RefTrainState
 from repro.train.step import make_train_step as ref_make_train_step
 from repro_torch.config import (MLAConfig, MoEConfig, RunConfig,
-                                ShapeConfig, get_arch, reduced_config)
+                                ShapeConfig, TrainConfig, get_arch,
+                                reduced_config)
 from repro_torch.kernels.flash_attention.kernel import takes_tensor_cores
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
@@ -415,13 +417,23 @@ def test_loss_and_grads_match_reference(carried):
 
 def test_train_step_matches_reference(carried):
     """One ``make_train_step`` step (remat ``"dots"``) from the carried
-    weights against the reference's ``jit``ted step: loss, grad norm,
-    then every parameter (twin of ``test_smoke_train_step``)."""
+    weights against the reference's ``jit``ted step, with no warm-up so
+    that the step's lr is not 0: loss, grad norm, then every parameter,
+    which must have moved by more than 10x the parameters' ``atol``
+    (twin of ``test_smoke_train_step``). Each parameter is held at
+    ``atol=1e-5`` plus what the gradient's bar above (after the clip) can
+    move AdamW's first step, ``lr * g / (|g| + eps)``, at that element of
+    the reference's gradient ``g``: far below ``atol`` where ``|g|`` is
+    well above the bar and ``eps``, up to ``2 * lr`` where ``g`` is 0 up
+    to rounding and the step's sign is float32 noise in both packages."""
     c = carried
     load_reference_params(c.port, _np(c.params))
-    run = RunConfig(arch=c.cfg, shape=ShapeConfig("t", 16, 4, "train"))
+    train = TrainConfig(warmup_steps=0)
+    run = RunConfig(arch=c.cfg, shape=ShapeConfig("t", 16, 4, "train"),
+                    train=train)
     ref_run = RefRunConfig(arch=c.ref_cfg,
-                           shape=RefShapeConfig("t", 16, 4, "train"))
+                           shape=RefShapeConfig("t", 16, 4, "train"),
+                           train=RefTrainConfig(warmup_steps=0))
     state, m = make_train_step(c.port, run)(
         TrainState.init(c.port.param_tree(), AdamWConfig()), c.batch)
     ref_state, rm = jax.jit(ref_make_train_step(c.ref, ref_run))(
@@ -431,10 +443,28 @@ def test_train_step_matches_reference(carried):
                                              rel=LOSS_REL)
     assert float(m["grad_norm"]) == pytest.approx(float(rm["grad_norm"]),
                                                   rel=GRAD_REL)
+    lr = float(rm["lr"])
+    assert lr == pytest.approx(train.learning_rate)
+    grad = c.ref_by_path(jax.grad(
+        lambda p: c.ref.loss(p, _jbatch(c.batch)))(c.params))
+    clip = min(1.0, train.grad_clip / float(rm["grad_norm"]))
+
+    def first_step(g):
+        return g / (np.abs(g) + train.eps)
+
     want = c.ref_by_path(ref_state["params"])
+    start = c.ref_by_path(c.params)
+    moved = 0.0
     for path, t in tree_flatten_with_paths(state["params"]):
-        np.testing.assert_allclose(t.detach().numpy(), want[path],
-                                   atol=PARAM_ATOL, err_msg=path)
+        g = clip * grad[path].astype(np.float64)
+        d = clip * (PARAM_ATOL + GRAD_REL * np.abs(grad[path]).max())
+        slack = lr * np.maximum(first_step(g + d) - first_step(g),
+                                first_step(g) - first_step(g - d))
+        err = np.abs(t.detach().numpy() - want[path])
+        assert np.all(err <= PARAM_ATOL + slack), (
+            path, err.max(), (err - slack).max())
+        moved = max(moved, np.abs(want[path] - start[path]).max())
+    assert moved > 10 * PARAM_ATOL, moved
     c.port.requires_grad_(False)
     load_reference_params(c.port, _np(c.params))
 
