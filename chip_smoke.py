@@ -59,7 +59,13 @@ paths:
   recurrentgemma-2b and paligemma-3b in float32 at full width and depth,
   forward against decode, and the four reduced archs on the card
   against the CPU; the three served in bfloat16 with granite's traffic;
-  hubert's forward over 4 x 2048 frames.
+  hubert's forward over 4 x 2048 frames;
+* the two large dense archs: flash attention at internlm2-20b's (GQA
+  48/8) and command-r-plus-104b's (96/8) prefill shapes at D 128, decode
+  attention at groups 6 and 12, both in float32 at a depth that fits
+  (forward against decode), then internlm2 served at full width and
+  depth and command-r-plus at full width cut to the deepest that fits
+  (its reason printed), each prefill's model FLOPs over its time.
 
 Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
@@ -67,10 +73,11 @@ launches (the GBDT kernels': the ``carat`` run's, both sharded CARAT
 runs' and the first process run's, its workers' ``gbdt_logits`` calls
 included, and the training pipelines'; flash attention's two kernels
 as two rows: the tensor-core kernel's in the prefills (granite's, the
-MoE family's, the hybrid's and the VLM's) and hubert's encode, the SIMT
-kernel's in the float32 training steps, each beside its own timing at
-granite's shapes; decode attention's in granite's, moonshot's, the
-hybrid's and the VLM's generate) and times, and the last line is
+MoE family's, the hybrid's, the VLM's and the two large dense archs')
+and hubert's encode, the SIMT kernel's in the float32 training steps,
+each beside its own timing at granite's shapes; decode attention's in
+granite's, moonshot's, the hybrid's, the VLM's and the two large dense
+archs' generate) and times, and the last line is
 ``{"ok": true, "device": {...}}``.
 
 Usage (one CUDA device; imports nothing of JAX or of ``repro``)::
@@ -2140,6 +2147,118 @@ def family_phases(dev, get_arch, profile_steps: int) -> Dict[str, Dict]:
     return out
 
 
+# ------------------------------- LM serving: the two large dense archs
+# the share of one 80 GB card the weights of a depth-cut serving model may
+# take together with its initialization's largest transient: init_tensor
+# draws each weight in float32 and casts it, so the tied embedding of
+# command-r-plus briefly holds 4 + 2 bytes a parameter beside the model
+SERVE_WEIGHT_BUDGET = 72e9
+
+
+def _param_bytes(cfg, dtype_bytes: int) -> Dict[str, float]:
+    """Bytes of ``cfg``'s weights outside the layers (embedding, final
+    norm, head) and of one layer, at ``dtype_bytes`` a parameter."""
+    import dataclasses
+    zero = dataclasses.replace(cfg, n_layers=0).param_count()
+    one = dataclasses.replace(cfg, n_layers=1).param_count() - zero
+    return {"outside_layers": zero * dtype_bytes, "layer": one * dtype_bytes,
+            "largest": cfg.vocab_size * cfg.d_model * dtype_bytes}
+
+
+def depth_that_fits(cfg, dtype_bytes: int, budget: float) -> Dict:
+    """The deepest cut of ``cfg`` whose weights, with the init's largest
+    transient (the largest weight drawn in float32, then cast to the
+    model's dtype), fit ``budget`` bytes; with its reason."""
+    pb = _param_bytes(cfg, dtype_bytes)
+    transient = pb["largest"] // dtype_bytes * 4 + (
+        pb["largest"] if dtype_bytes != 4 else 0)
+    depth = int((budget - transient - pb["outside_layers"]) // pb["layer"])
+    depth = max(1, min(depth, cfg.n_layers))
+    return {"from": cfg.n_layers, "to": depth,
+            "reason": f"{pb['layer'] / 1e9:.3f} GB a layer and "
+                      f"{pb['outside_layers'] / 1e9:.2f} GB outside the "
+                      f"layers at {dtype_bytes} bytes a parameter, with "
+                      f"the init's {transient / 1e9:.2f} GB transient "
+                      f"(the largest weight drawn in float32 and cast): "
+                      f"{depth} layers fit "
+                      f"{budget / 1e9:.0f} GB of the 80 GB card, the rest "
+                      f"left to the activations"}
+
+
+def dense_phases(dev, get_arch, profile_steps: int) -> Dict[str, Dict]:
+    """The two large dense archs, each phase emitted as it ends with its
+    seconds: K2 at internlm2-20b's (GQA 48/8, group 6) and
+    command-r-plus-104b's (96/8, group 12) prefill shapes at D 128; K3 at
+    groups 6 and 12, D 128 (group 12 takes two group tiles, 8 + 4); both
+    in float32 at a depth that fits, forward against decode; then serving
+    with granite's traffic, internlm2 at full width and depth and
+    command-r-plus at full width cut to the deepest that fits (printed
+    with its reason), each with its prefill's model FLOPs
+    (``roofline/model_flops.py``) over its time as a share of the bf16
+    peak. Returns the phases by name for the kernel line."""
+    import dataclasses
+
+    from repro_torch.config.types import ShapeConfig
+    from repro_torch.roofline.model_flops import model_flops
+    intern = get_arch("internlm2-20b")
+    cr = get_arch("command-r-plus-104b")
+    out: Dict[str, Dict] = {}
+
+    def run(name: str, fn: Callable[..., Dict], *args, **kw) -> Dict:
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        res.setdefault("phase_s", time.perf_counter() - t0)
+        emit(res)
+        out[name] = res
+        _free(dev)
+        return res
+
+    for i, cfg in enumerate((intern, cr)):
+        run(f"fa_{cfg.name}", phase_prefill_attention, dev, cfg.name, 4,
+            cfg.n_heads, 2048, cfg.resolved_head_dim,
+            cfg.resolved_head_dim, seed=40 + i, reps=10,
+            hkv=cfg.n_kv_heads)
+    for i, cfg in enumerate((intern, cr)):
+        run(f"dec_{cfg.name}", phase_decode_attention, dev, 8, cfg.n_heads,
+            cfg.n_kv_heads, cfg.resolved_head_dim, path_s=1024,
+            path_len=512, s=4096, step=37, seed=42 + i, reps=200)
+    def consistency(cfg, cut: Dict, seed: int) -> Dict:
+        res = phase_lm_consistency(
+            dev, dataclasses.replace(cfg, n_layers=cut["to"]), batch=2,
+            n_tokens=16, cache_len=32, seed=seed)
+        res["depth_cut"] = cut
+        return res
+
+    def serve(cfg, cut: Optional[Dict], seed: int) -> Dict:
+        served = cfg if cut is None else dataclasses.replace(
+            cfg, n_layers=cut["to"])
+        res = phase_lm_serve(dev, served, prefill_batch=4, prefill_len=2048,
+                             n_requests=8, prompt0=128, prompt_step=48,
+                             max_new=64, cache_len=1024,
+                             profile_steps=profile_steps, seed=seed)
+        if cut is not None:
+            res["depth_cut"] = cut
+        flops = model_flops(served, ShapeConfig("prefill", 2048, 4,
+                                                "prefill"))
+        res["prefill"]["model_flops"] = flops
+        res["prefill"]["bf16_peak_share"] = (
+            flops / (res["prefill"]["ms"] / 1e3) / H100_BF16_OPS_PER_S)
+        return res
+
+    # float32: internlm2 cut to 12 layers (18.6 GB with its untied head),
+    # command-r-plus to the deepest cut that fits 50 GB
+    run("consistency_intern", consistency, intern,
+        {"from": intern.n_layers, "to": 12,
+         "reason": "float32 weights of all 48 layers (79.4 GB) do not fit "
+                   "one 80 GB card; 12 keep the check short"}, 44)
+    run("consistency_cr", consistency, cr, depth_that_fits(cr, 4, 50e9), 45)
+    # granite's traffic
+    run(f"serve_{intern.name}", serve, intern, None, 46)
+    run(f"serve_{cr.name}", serve, cr,
+        depth_that_fits(cr, 2, SERVE_WEIGHT_BUDGET), 47)
+    return out
+
+
 # ------------------------------------------------------- LM training path
 def _kernel_launches() -> Dict[str, int]:
     """The launches of every kernel counter of the training path."""
@@ -2893,16 +3012,24 @@ def main() -> int:
     # paligemma-3b at full width and depth, hubert-xlarge's encode
     family = family_phases(dev, get_arch, PROFILE_STEPS)
 
+    # the two large dense archs: K2 and K3 at GQA groups 6 and 12 (D
+    # 128), the float32 consistency, serving internlm2-20b at full width
+    # and depth and command-r-plus-104b at full width, depth cut
+    dense = dense_phases(dev, get_arch, PROFILE_STEPS)
+
     # each kernel's launches summed over the paths that drive it: K1 and
     # K1b on the CARAT runs and the training pipelines; K2's tensor-core
     # kernel in the bf16 prefills (granite's, the MoE family's, the
-    # hybrid's and the VLM's) and hubert's encode, its SIMT kernel in the
-    # float32 training steps ((a) and (c); the tensor-core kernel is
-    # gated at 0 there), each row beside its own kernel's timing
-    # (granite's shapes); K3 in generate (granite's, moonshot's, the
-    # hybrid's and the VLM's; MLA's decode and mamba2's launch none)
+    # hybrid's, the VLM's, internlm2's and command-r-plus's) and hubert's
+    # encode, its SIMT kernel in the float32 training steps ((a) and (c);
+    # the tensor-core kernel is gated at 0 there), each row beside its own
+    # kernel's timing (granite's shapes); K3 in generate (granite's,
+    # moonshot's, the hybrid's, the VLM's and the dense archs'; MLA's
+    # decode and mamba2's launch none)
     serves = [serve] + moe_serves + [family[f"serve_{name}"] for name in (
-        "mamba2-370m", "recurrentgemma-2b", "paligemma-3b")]
+        "mamba2-370m", "recurrentgemma-2b", "paligemma-3b")] + [
+        dense[f"serve_{name}"] for name in (
+            "internlm2-20b", "command-r-plus-104b")]
     emit(kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
          "flash_attention": fa,

@@ -182,10 +182,9 @@ def get_shape(name: str) -> ShapeConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Distribution knobs for the (pod, data, model) mesh. The port's
-    single-device trainer reads ``remat``, ``microbatches`` and
-    ``opt_state_dtype``; the mesh knobs wait for its ``parallel/``
-    slice."""
+    """Distribution knobs for the (pod, data, model) mesh. The trainer
+    reads ``remat``, ``microbatches`` and ``opt_state_dtype``; the dry
+    run (``launch/dryrun.py``) also ``fsdp`` and ``seq_shard_attn``."""
     fsdp: bool = True                   # shard params/opt-state over "data" too
     remat: str = "full"                 # none | dots | full
     scan_layers: bool = True            # lax.scan over layers (bounded HLO)

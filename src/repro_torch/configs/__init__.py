@@ -4,7 +4,9 @@ architecture of the LM stack. Importing this package registers the
 architectures."""
 from repro_torch.configs import (  # noqa: F401
     granite_3_2b,
+    command_r_plus_104b,
     h2o_danube_1_8b,
+    internlm2_20b,
     mamba2_370m,
     recurrentgemma_2b,
     paligemma_3b,

@@ -15,9 +15,9 @@ MLA (DeepSeek-V3): low-rank Q/KV projections with decoupled RoPE keys.
 The full pass expands the latent KV and runs the flash-attention op with
 V zero-padded to the query/key head dim; decode uses the *absorbed*
 form against the compressed (kv_lora + rope) cache, in float32 torch
-ops as the reference's einsums (no kernel). The reference's
-activation-sharding calls are no-ops without rules and are dropped
-until the port's ``parallel/`` slice.
+ops as the reference's einsums (no kernel). The activation-sharding
+calls (``parallel/constraints.constrain``) stand where the reference's
+do.
 """
 from __future__ import annotations
 
@@ -31,6 +31,11 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, norm_apply, norm_spec
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel.constraints import constrain, constrain_heads
+
+# the fused projections' logical axes (B, S, H*D)
+_FUSED_Q = ("act_batch", None, "act_model")
+_FUSED_KV = ("act_batch", None, "act_kv_heads")
 
 
 class CacheSpec(NamedTuple):
@@ -99,6 +104,20 @@ def _window(cfg: ArchConfig, window_override: Optional[int] = None) -> int:
     return cfg.sliding_window if cfg.attention == AttentionKind.SLIDING else 0
 
 
+def _qkv(params: Mapping, cfg: ArchConfig, x: torch.Tensor):
+    """The GQA projections, split into heads (B, H, S, D). On a mesh each
+    fused projection first takes a layout its heads can split from (the
+    reference leaves that to XLA); without rules those are no-ops."""
+    q = constrain_heads(_project(params, x, "wq", "bq"), cfg.n_heads,
+                        _FUSED_Q)
+    k = constrain_heads(_project(params, x, "wk", "bk"), cfg.n_kv_heads,
+                        _FUSED_KV)
+    v = constrain_heads(_project(params, x, "wv", "bv"), cfg.n_kv_heads,
+                        _FUSED_KV)
+    return (_split_heads(q, cfg.n_heads), _split_heads(k, cfg.n_kv_heads),
+            _split_heads(v, cfg.n_kv_heads))
+
+
 # ------------------------------------------------------------ GQA full pass
 def attn_apply(
     params: Mapping,
@@ -110,9 +129,12 @@ def attn_apply(
     if cfg.attention == AttentionKind.MLA:
         return _mla_apply(params, cfg, x, positions)
     s = x.shape[1]
-    q = _split_heads(_project(params, x, "wq", "bq"), cfg.n_heads)
-    k = _split_heads(_project(params, x, "wk", "bk"), cfg.n_kv_heads)
-    v = _split_heads(_project(params, x, "wv", "bv"), cfg.n_kv_heads)
+    q, k, v = _qkv(params, cfg, x)
+    # q heads shard over "model"; kv heads often < model size, so kv stays
+    # on the projections' sharding. seq stays local here even under
+    # sequence-parallel residual streams (attention needs the full
+    # sequence per head).
+    q = constrain(q, ("act_batch", "act_model", None, None))
     if positions is None:
         positions = torch.arange(s, device=x.device)
     if cfg.attention != AttentionKind.BIDIR:
@@ -121,6 +143,7 @@ def attn_apply(
     causal = cfg.attention != AttentionKind.BIDIR
     out = flash_attention(q, k, v, causal=causal,
                           window=_window(cfg, window_override))
+    out = constrain(out, ("act_batch", "act_model", None, None))
     return _project(params, _merge_heads(out), "wo", "bo")
 
 
@@ -173,9 +196,7 @@ def attn_decode(
     if cfg.attention == AttentionKind.MLA:
         return _mla_decode(params, cfg, x, cache, pos)
     b = x.shape[0]
-    q = _split_heads(_project(params, x, "wq", "bq"), cfg.n_heads)
-    k = _split_heads(_project(params, x, "wk", "bk"), cfg.n_kv_heads)
-    v = _split_heads(_project(params, x, "wv", "bv"), cfg.n_kv_heads)
+    q, k, v = _qkv(params, cfg, x)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)    # (B, H, 1, hd)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
 

@@ -4,9 +4,9 @@
 Plain functions on tensors and on dicts of parameters (an
 ``nn.ParameterDict`` or a plain dict). The matrix products are
 ``torch.matmul``: the reference leaves them to XLA, outside any Pallas
-kernel. The reference's activation-sharding calls
-(``parallel/constraints.constrain``) are no-ops without rules; the port
-drops them until its ``parallel/`` slice.
+kernel. The activation-sharding calls (``parallel/constraints.constrain``)
+stand where the reference's do: no-ops without rules, a DTensor's
+redistribution with them.
 """
 from __future__ import annotations
 
@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from repro_torch.config.types import ArchConfig, Family
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel.constraints import constrain
 
 F32 = torch.float32
 
@@ -79,11 +80,15 @@ def mlp_apply(params: Mapping, cfg: ArchConfig,
               x: torch.Tensor) -> torch.Tensor:
     if "wg" in params:
         g = _act(cfg, x @ params["wg"])
-        return (g * (x @ params["wi"])) @ params["wo"]
+        h = g * (x @ params["wi"])
+        h = constrain(h, ("act_batch", None, "act_model"))
+        return h @ params["wo"]
     h = x @ params["wi"]
     if "bi" in params:
         h = h + params["bi"]
-    y = _act(cfg, h) @ params["wo"]
+    h = _act(cfg, h)
+    h = constrain(h, ("act_batch", None, "act_model"))
+    y = h @ params["wo"]
     if "bo" in params:
         y = y + params["bo"]
     return y

@@ -57,7 +57,8 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.param import ParamSpec, init_tensor
+from repro_torch.models.param import ParamSpec, abstract, init_tensor
+from repro_torch.parallel.constraints import constrain
 
 
 # ------------------------------------------------------------- block layout
@@ -244,6 +245,11 @@ class LanguageModel(nn.Module):
             tree["mtp"] = self.mtp.param_tree()
         return tree
 
+    def abstract_params(self) -> Dict:
+        """Meta-device stand-ins of :meth:`param_specs` in each spec's
+        dtype (the dry run's; nothing is allocated)."""
+        return abstract(self.param_specs())
+
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LanguageModel":
         """Random weights by the reference's init rules, drawn from
@@ -272,14 +278,19 @@ class LanguageModel(nn.Module):
         """Full-sequence pass -> (logits (B, S, V), the blocks' summed aux
         loss; 0 for the dense family)."""
         x = self.embed(batch)
+        x = constrain(x, ("act_batch", "act_seq", None))
         positions = torch.arange(x.shape[1], device=self.device)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for blk in self.layers:
             x, a = _maybe_remat(blk, remat)(x, positions)
+            # the reference's scan body and its unrolled loop each hold
+            # the carry here: one call for the port's one loop
+            x = constrain(x, ("act_batch", "act_seq", None))
             if a is not None:
                 aux = aux + a
         x = L.norm_apply(self.final_norm, self.cfg, x)
         logits = L.lm_logits(self.embedding, x)
+        logits = constrain(logits, ("act_batch", None, "act_model"))
         return logits, aux
 
     # ------------------------------------------------------------------ loss

@@ -29,6 +29,7 @@ import torch
 from repro_torch.config.types import ArchConfig
 from repro_torch.models.layers import _act
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel.constraints import constrain
 
 F32 = torch.float32
 
@@ -161,14 +162,19 @@ def moe_apply(params: Mapping, cfg: ArchConfig,
 
     # ---- grouped dispatch: one group per batch row -------------------------
     buf, state = dispatch(x, top_i, _capacity(s, cfg), e)
+    # groups (batch rows) shard over data; experts shard over model: on a
+    # mesh this boundary is the MoE all-to-all
+    buf = constrain(buf, ("act_batch", "act_model", None, None))
 
     # ---- expert FFN ---------------------------------------------------------
     g = _act(cfg, torch.einsum("gecd,edf->gecf", buf, params["wg"]))
     h = g * torch.einsum("gecd,edf->gecf", buf, params["wi"])
     out = torch.einsum("gecf,efd->gecd", h, params["wo"])
+    out = constrain(out, ("act_batch", "act_model", None, None))
 
     # ---- combine ------------------------------------------------------------
     y = combine(out, top_p, state)
+    y = constrain(y, ("act_batch", "act_seq", None))
 
     # ---- shared experts -----------------------------------------------------
     for i in range(m.n_shared_experts):

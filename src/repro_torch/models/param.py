@@ -2,17 +2,26 @@
 (the port's copy of ``repro/models/param.py``).
 
 Every model module builds a nested dict of :class:`ParamSpec` leaves
-(lists hold per-layer dicts). ``materialize(specs, generator, ...)``
-turns it into real tensors with the reference's init rules, and
-``count_tree_params`` counts it. The logical axes are kept for the
-distribution layer; ``abstract`` and ``logical_to_pspec`` wait for the
-port's ``parallel/`` slice.
+(lists hold per-layer dicts). From it:
+
+* ``materialize(specs, generator, ...)`` -> real tensors with the
+  reference's init rules;
+* ``abstract(specs)`` -> meta-device tensors of each spec's shape and
+  dtype (the dry run's stand-ins: nothing is allocated);
+* ``logical_to_pspec(specs, rules)`` -> a tree of partition specs
+  (:class:`repro_torch.parallel.sharding.P`): the distribution layer
+  maps logical axes to mesh axes;
+* ``count_tree_params(specs)`` -> the number of parameters.
+
+Logical axis vocabulary (``parallel/sharding.py`` maps it to the mesh):
+  "vocab", "embed", "heads", "kv_heads", "ffn", "experts", "inner",
+  "state", "layers", plus None for replicated dims.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -77,6 +86,29 @@ def materialize(tree, generator: torch.Generator,
     dev = resolve_device(device)
     return spec_tree_map(
         lambda s: init_tensor(s, generator, dtype, dev), tree)
+
+
+def abstract(tree):
+    """Meta-device tensors of each spec's shape and dtype: zero
+    allocation, the dry run's stand-ins."""
+    return spec_tree_map(
+        lambda s: torch.empty(s.shape, dtype=s.dtype, device="meta"), tree)
+
+
+def logical_to_pspec(tree, rules: Dict[str, Any]):
+    """Map each leaf's logical axes to a partition spec via ``rules``.
+
+    rules: logical axis name -> mesh axis (str), tuple of mesh axes, or
+    None. Unknown logical names map to None (replicated).
+    """
+    # the parallel package imports this module: import it here, as the
+    # reference imports jax's PartitionSpec
+    from repro_torch.parallel.sharding import P
+
+    def one(s: ParamSpec):
+        return P(*[rules.get(a) if a is not None else None for a in s.axes])
+
+    return spec_tree_map(one, tree)
 
 
 def count_tree_params(tree) -> int:

@@ -30,7 +30,16 @@ class TrainState:
         return train_state_init(params, opt_cfg)
 
     @staticmethod
-    def pspecs(param_pspecs):
-        raise NotImplementedError(
-            "TrainState.pspecs waits for the port's parallel/ slice "
-            "(ROADMAP Queue 1)")
+    def pspecs(param_pspecs) -> Dict[str, Any]:
+        """The state's partition specs: the moments as the parameters,
+        the counts replicated."""
+        from repro_torch.parallel.sharding import P
+        return {
+            "params": param_pspecs,
+            "opt": {
+                "m": param_pspecs,
+                "v": param_pspecs,
+                "count": P(),
+            },
+            "step": P(),
+        }

@@ -45,11 +45,19 @@ def tree_leaves(tree) -> List[Any]:
     return [leaf for _, leaf in tree_flatten_with_paths(tree)]
 
 
-def tree_map(fn: Callable[[Any], Any], tree):
+def tree_map(fn: Callable[..., Any], tree, *rest,
+             is_leaf: Callable[[Any], bool] = lambda x: False):
     """A tree of plain dicts and lists of the same layout, ``fn`` applied
-    to every leaf."""
+    to every leaf, with the leaves of ``rest`` (trees of ``tree``'s
+    layout) beside it. ``is_leaf`` stops the walk at a node (a tuple
+    that is a leaf, say)."""
+    if is_leaf(tree):
+        return fn(tree, *rest)
     if isinstance(tree, _DICTS):
-        return {k: tree_map(fn, tree[k]) for k in tree.keys()}
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in tree.keys()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
+                          for i, v in enumerate(tree))
+    return fn(tree, *rest)

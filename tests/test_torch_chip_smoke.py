@@ -312,6 +312,67 @@ def test_family_phases_on_cpu(monkeypatch):
     assert all(set(row) == KEYS for row in line["kernels"])
 
 
+def test_dense_phases_on_cpu(monkeypatch):
+    """The two large dense archs' phases (``dense_phases``) at the
+    reduced configs, cut to a CPU's size: K2 at both GQA groups, K3 at
+    both, the float32 consistency at its depth cuts, serving both with
+    command-r-plus's depth cut and each prefill's model FLOPs; on the
+    CPU nothing launches."""
+    fa = chip_smoke.phase_prefill_attention
+    dec = chip_smoke.phase_decode_attention
+    serve = chip_smoke.phase_lm_serve
+    monkeypatch.setattr(
+        chip_smoke, "phase_prefill_attention",
+        lambda dev, arch, b, h, s, d, v_dim, seed, reps, **kw: fa(
+            dev, arch, b, h, s // 64, d, v_dim, seed, 1, **kw))
+    monkeypatch.setattr(
+        chip_smoke, "phase_decode_attention",
+        lambda dev, b, hq, hkv, d, seed, reps, **kw: dec(
+            dev, b, hq, hkv, d, path_s=64, path_len=32, s=128, step=3,
+            seed=seed, reps=2))
+    monkeypatch.setattr(
+        chip_smoke, "phase_lm_serve",
+        lambda dev, cfg, **kw: serve(dev, cfg, **{
+            **kw, "prefill_len": 48, "n_requests": 3, "prompt0": 4,
+            "prompt_step": 3, "max_new": 3, "cache_len": 32}))
+    out = chip_smoke.dense_phases(
+        CPU, lambda name: reduced_config(get_arch(name)), 2)
+    none = {"flash_attention": 0, "flash_attention_tc": 0,
+            "decode_attention": 0}
+    assert all(r["phase_s"] > 0.0 for r in out.values())
+    names = ("internlm2-20b-smoke", "command-r-plus-104b-smoke")
+    for name in names:
+        assert out[f"fa_{name}"]["launches"] == {"tensor_core": 0,
+                                                 "simt": 0}
+        assert out[f"fa_{name}"]["max_abs_err"] == 0.0
+        assert out[f"dec_{name}"]["max_abs_err"] == 0.0
+        srv = out[f"serve_{name}"]
+        assert srv["prefill"]["launches"] == none
+        assert srv["generate"]["launches"] == none
+        assert srv["prefill"]["model_flops"] > 0.0
+        assert srv["prefill"]["bf16_peak_share"] > 0.0
+    for key in ("consistency_intern", "consistency_cr"):
+        assert out[key]["max_abs_err"] <= chip_smoke.DECODE_ATOL
+        assert out[key]["launches"] == none
+    assert out["consistency_intern"]["layers"] == 12
+    assert "depth_cut" not in out["serve_internlm2-20b-smoke"]
+    assert out["serve_command-r-plus-104b-smoke"]["depth_cut"]["to"] == 2
+
+
+def test_depth_cuts_of_the_dense_archs():
+    """command-r-plus-104b at full width: 14 layers fit the serving
+    budget in bfloat16 (3.146 GB a layer, 6.29 GB of tied embedding, its
+    18.87 GB init transient), 3 fit 50 GB in float32."""
+    cr = get_arch("command-r-plus-104b")
+    cut = chip_smoke.depth_that_fits(cr, 2, chip_smoke.SERVE_WEIGHT_BUDGET)
+    assert (cut["from"], cut["to"]) == (64, 14)
+    assert "3.146 GB a layer" in cut["reason"]
+    assert chip_smoke.depth_that_fits(cr, 4, 50e9)["to"] == 3
+    pb = chip_smoke._param_bytes(get_arch("internlm2-20b"), 2)
+    assert pb["outside_layers"] + 48 * pb["layer"] == 2 * get_arch(
+        "internlm2-20b").param_count()
+
+
 def test_ptxas_entries():
     """``phase_build``'s registers and spills of each entry of a ptxas
     ``-v`` report whose mangled name holds a kernel's name."""

@@ -85,6 +85,21 @@ MOE_MODULES = [
 ]
 
 
+# the last slice's modules: the distribution layer, the launch helpers of
+# the dry run, the roofline and the two dense configs
+PARALLEL_MODULES = [
+    "repro_torch.parallel.constraints", "repro_torch.parallel.sharding",
+    "repro_torch.parallel.compression", "repro_torch.parallel",
+    "repro_torch.launch.mesh", "repro_torch.launch.input_specs",
+    "repro_torch.launch.dryrun",
+    "repro_torch.roofline.model_flops", "repro_torch.roofline.hlo_parser",
+    "repro_torch.roofline.analysis", "repro_torch.roofline",
+    "repro_torch.models.param",
+    "repro_torch.configs.internlm2_20b",
+    "repro_torch.configs.command_r_plus_104b",
+]
+
+
 def test_deployment_modules_import_first_without_jax_or_reference():
     """Each module of the deployment, and of the training slice, imports
     first in a fresh interpreter (no eager import cycle), with ``jax``
@@ -96,6 +111,14 @@ def test_moe_family_modules_import_first_without_jax_or_reference():
     """The MoE family's modules, ``repro_torch.models.moe`` first among
     them, each alone in a fresh interpreter: no ``jax``, no ``repro``."""
     _import_first(MOE_MODULES)
+
+
+def test_parallel_slice_modules_import_first_without_jax_or_reference():
+    """The distribution layer, the dry run's launch helpers, the roofline
+    and the two dense configs, each alone in a fresh interpreter (the
+    models and ``parallel`` import each other): no ``jax``, no
+    ``repro``."""
+    _import_first(PARALLEL_MODULES)
 
 
 def _import_first(names):

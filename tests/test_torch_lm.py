@@ -1,7 +1,9 @@
 """CPU parity of the port's LM stack with the reference's.
 
-At ``reduced_config`` of the eight archs the port carries (granite-3-2b,
-full causal attention; h2o-danube-1.8b, sliding window 8, untied head;
+At ``reduced_config`` of the ten archs the port carries (granite-3-2b,
+full causal attention; internlm2-20b, GQA 4/1 at reduced width, untied
+head; command-r-plus-104b, tied, the bias-free layernorm;
+h2o-danube-1.8b, sliding window 8, untied head;
 mamba2-370m, the SSD mixer; recurrentgemma-2b, the RG-LRU hybrid;
 paligemma-3b, image patches before the text; moonshot-v1-16b-a3b, MoE 4
 experts top-2; deepseek-v3-671b, MLA and MoE with a shared expert, the
@@ -30,7 +32,9 @@ activations reach ~1e3. float32 rounding then moves its logits by up to
 The loss (with the VLM's logits cut to the text) and its gradients, a
 train step, the remat policies, the cache layouts and the analytic
 parameter counts of the four families this slice added are held to the
-reference too (``test_models.py``'s twins).
+reference too (``test_models.py``'s twins), and every arch's full-size
+count and one reduced train step are the twins of
+``test_full_size_param_counts`` and ``test_smoke_train_step``.
 """
 import copy
 import dataclasses
@@ -57,8 +61,9 @@ from repro.serve.engine import ServeEngine as RefServeEngine
 from repro.train.optimizer import AdamWConfig as RefAdamWConfig
 from repro.train.state import TrainState as RefTrainState
 from repro.train.step import make_train_step as ref_make_train_step
-from repro_torch.config import (Family, RunConfig, ShapeConfig, TrainConfig,
-                                get_arch, list_archs, reduced_config)
+from repro_torch.config import (Family, ParallelConfig, RunConfig,
+                                ShapeConfig, TrainConfig, get_arch,
+                                list_archs, reduced_config)
 from repro_torch.kernels.decode_attention import kernel as dec_kernel
 from repro_torch.kernels.flash_attention import kernel as fa_kernel
 from repro_torch.models import layers as L
@@ -71,7 +76,8 @@ from repro_torch.serve import Request, ServeEngine
 from repro_torch.train import AdamWConfig, TrainState, make_train_step
 from repro_torch.utils.tree import tree_flatten_with_paths, tree_leaves
 
-ARCHS = ["granite-3-2b", "h2o-danube-1.8b", "mamba2-370m",
+ARCHS = ["granite-3-2b", "internlm2-20b", "command-r-plus-104b",
+         "h2o-danube-1.8b", "mamba2-370m",
          "recurrentgemma-2b", "paligemma-3b", "moonshot-v1-16b-a3b",
          "deepseek-v3-671b", "hubert-xlarge"]
 # the families this slice added
@@ -532,3 +538,41 @@ def test_full_width_reference_params_load(name):
     load_reference_params(model, zeros)
     assert (sum(p.numel() for p in model.parameters())
             == get_arch(name).param_count())
+
+
+def test_full_size_param_counts():
+    """Twin of ``tests/test_models.py::test_full_size_param_counts``:
+    analytic counts in the advertised ballpark, and the full-size spec
+    tree (``abstract_params``, on the meta device) counts the same."""
+    targets = {
+        "command-r-plus-104b": (95e9, 115e9),
+        "deepseek-v3-671b": (620e9, 760e9),
+        "granite-3-2b": (2.2e9, 2.8e9),
+        "internlm2-20b": (18e9, 22e9),
+        "mamba2-370m": (0.3e9, 0.45e9),
+        "hubert-xlarge": (0.8e9, 1.1e9),
+    }
+    for name, (lo, hi) in targets.items():
+        n = get_arch(name).param_count()
+        assert lo <= n <= hi, f"{name}: {n/1e9:.1f}B outside [{lo/1e9},{hi/1e9}]"
+        model = build_model(get_arch(name), device="meta")
+        assert sum(t.numel() for t in tree_leaves(
+            model.abstract_params())) == n
+
+
+@pytest.mark.parametrize("name", ARCHS)
+def test_smoke_train_step(name):
+    """Twin of ``tests/test_models.py::test_smoke_train_step``: reduced
+    config, one train step on the CPU, finite loss and grad norm."""
+    cfg = reduced_config(get_arch(name))
+    model = build_model(cfg, device="cpu", dtype=torch.float32)
+    model.init(torch.Generator().manual_seed(0))
+    run = RunConfig(arch=cfg, shape=ShapeConfig("t", S, B, "train"),
+                    parallel=ParallelConfig(remat="none",
+                                            opt_state_dtype="float32"))
+    state = TrainState.init(model.param_tree(), AdamWConfig())
+    state, metrics = make_train_step(model, run)(
+        state, _batch(cfg, labels=True))
+    assert bool(torch.isfinite(metrics["loss"]))
+    assert bool(torch.isfinite(metrics["grad_norm"]))
+    assert int(state["step"]) == 1
