@@ -1550,7 +1550,9 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     device's idle share. The warm-up prefill counts the MoE layers'
     dropped assignments; for an MoE arch its logits must equal the timed
     prefill's bit for bit (the combine has no atomics). MLA decodes by
-    the absorbed einsums: no ``decode_attention`` launch."""
+    the absorbed einsums: no ``decode_attention`` launch. Every cache
+    buffer keeps its address through (b) (a gate: the writes are in
+    place)."""
     import torch
     from repro_torch.models.lm import build_model
     from repro_torch.serve import Request, ServeEngine
@@ -1606,15 +1608,25 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
                                  "capacity": disp.capacities}
 
     # (b) generate, every step's logits checked finite on the device; the
-    # hooks run before each step with its index
+    # hooks run before each step with its index. Each step's cache
+    # buffers (KV, latent, state: all but the (B,) lengths, new each
+    # step) are held to the addresses of the first step's (host reads)
     flags: List = []
     hooks: List[Callable[[int], None]] = []
     step = model.decode_step
+    addresses: List = []
+
+    def buffers(cache):
+        return [t.data_ptr() for layer in cache
+                for k, t in sorted(layer.items()) if k != "length"]
 
     def checked(tokens, cache, pos):
         for hook in hooks:
             hook(len(flags))
+        if not flags:
+            addresses[:] = [buffers(cache), True]
         logits, cache = step(tokens, cache, pos)
+        addresses[1] = addresses[1] and buffers(cache) == addresses[0]
         flags.append(torch.isfinite(logits).all())
         return logits, cache
 
@@ -1654,6 +1666,8 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     _reset_attn_launches()
     reqs, gen_s, tail_s = generate()
     launches_b = _attn_launches()
+    cache_kept = addresses[1]
+    gate(cache_kept, "a decode step moved a cache buffer to a new address")
     gate(all(len(q.out_tokens) == max_new
              and all(0 <= t < v for t in q.out_tokens) for q in reqs),
          "a request's tokens are missing or outside the vocab")
@@ -1681,6 +1695,8 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
         "tail_steps": profile_steps,
         "tail_ms_per_step": tail_s * 1e3 / profile_steps,
         "launches": launches_b,
+        "cache_buffers": len(addresses[0]),
+        "cache_addresses_kept": cache_kept,
         "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
                               if dev.type == "cuda" else None),
         "first_tokens": reqs[0].out_tokens[:8]}
@@ -2416,8 +2432,9 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
     update; on the card also device busy ms (idle share against the
     timed steps' mean), the heaviest device ops, K2's device ms and the
     device ms of its backward (the plain version's gradient).
-    Gates: loss and grad norm finite at every step, K2 once per layer
-    per step, K1 once per scorer call, one update range in the trace."""
+    Gates: loss and grad norm finite at every step, K2 and its backward
+    op (``flash_attention_backward``) once per layer per step, K1 once per
+    scorer call, one update range in the trace."""
     import torch
     from repro_torch.config import (CaratConfig, DataConfig, ParallelConfig,
                                     RunConfig, ShapeConfig, TrainConfig)
@@ -2460,6 +2477,7 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
                      "input_wait_s": pipe.step(shape, step_s)})
         metrics.append(torch.stack([m["loss"], m["grad_norm"]]))
     launches = _kernel_launches()
+    backward_calls = fa_kernel.backward_calls["flash_attention_backward"]
     peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     metrics = torch.stack(metrics).cpu().numpy()
     gate(bool(np.isfinite(metrics).all()), "a full-width loss or grad "
@@ -2470,6 +2488,10 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
                 "gbdt_logits": _scorer_calls(pipe), "gbdt_grid_logits": 0}
         gate(launches == want, f"full-width launches {launches}, expected "
                                f"{want}")
+        # K2's backward op: once per layer per step
+        gate(backward_calls == cfg.n_layers * steps,
+             f"{backward_calls} calls of the backward op, expected "
+             f"{cfg.n_layers * steps}")
     mean_ms = float(np.mean([r["ms"] for r in rows]))
     # one more step under the profiler: the AdamW update's range gives
     # the split of a step (on the card, the range's span on the device:
@@ -2499,7 +2521,8 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
            "peak_device_bytes": peak, "losses": metrics[:, 0].tolist(),
            "grad_norms": metrics[:, 1].tolist(), "per_step": rows,
            "decisions": sum(len(c.decisions) for c in pipe.controllers),
-           "scorer_calls": _scorer_calls(pipe), "launches": launches}
+           "scorer_calls": _scorer_calls(pipe), "launches": launches,
+           "flash_attention_backward_op_calls": backward_calls}
     out["profiled"] = {"run": "one more step, traced",
                        "wall_ms": traced_s * 1e3,
                        "adamw_calls": adamw_ms["calls"]}
@@ -3030,6 +3053,15 @@ def main() -> int:
         "mamba2-370m", "recurrentgemma-2b", "paligemma-3b")] + [
         dense[f"serve_{name}"] for name in (
             "internlm2-20b", "command-r-plus-104b")]
+    # where the end of the output is all that is kept: the card, each
+    # served arch's cache buffers at their addresses through generate,
+    # K2's backward op calls in lm_train (c)
+    emit({"phase": "summary", "nvidia_smi": device["nvidia_smi"],
+          "cache_addresses_kept": {
+              r["arch"]: r["generate"]["cache_addresses_kept"]
+              for r in serves},
+          "lm_train_c_backward_op_calls":
+              train["c"]["flash_attention_backward_op_calls"]})
     emit(kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
          "flash_attention": fa,

@@ -98,7 +98,10 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check(k.shape[0] == b and k.shape[3] == d,
           "k, v must match q's batch and head dim")
     check(hkv >= 1 and hq % hkv == 0, "GQA requires Hq % Hkv == 0")
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):
+        # meta: the dry run's stand-ins, whose shardings DTensor carries
+        # through the plain version's ops (as the reference's dry run
+        # partitions its XLA oracle)
         return decode_attention_ref(q, k, v, lengths=lengths, scale=scale)
     check(dev.type == "cuda", f"unsupported device {dev}")
     check(q.dtype in DTYPES, f"q must be float32 or bfloat16, got {q.dtype}")

@@ -23,10 +23,13 @@ tensor-core kernel.
 
 **The gradient.** On a CUDA tensor :func:`flash_attention` calls the op
 ``torch.ops.repro_torch.flash_attention``, whose forward launches the
-kernel and whose backward (registered with ``register_autograd``)
-recomputes the plain version from the saved q, k and v under
-``torch.enable_grad()`` and returns its gradients. That is the
-gradient the reference trains with: its Pallas kernel is forward-only,
+kernel and whose backward (registered with ``register_autograd``) is
+the op ``torch.ops.repro_torch.flash_attention_backward``: it
+recomputes the plain version from the saved q, k and v and returns its
+gradients by autograd. Being an op of its own, the backward shards as
+the forward does on a mesh (``parallel.sharding.register_op_shardings``)
+and the dry run counts it by a formula. That is the gradient the reference
+trains with: its Pallas kernel is forward-only,
 it has no backward kernel, and ``jax.value_and_grad`` differentiates
 its XLA oracle (``repro/models/runtime_flags.py``: ``ATTN_BACKEND`` is
 ``"xla"``). A hand-written backward kernel is later performance work.
@@ -42,7 +45,7 @@ from __future__ import annotations
 
 import ctypes
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -55,13 +58,17 @@ MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
+# calls of the backward op on real tensors (it launches no kernel of its
+# own: the plain version's ops)
+backward_calls: Dict[str, int] = {"flash_attention_backward": 0}
 # the profiler range around the op's backward
 BACKWARD_RANGE = "repro_torch::flash_attention_backward"
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, backward_calls):
+        for k in counts:
+            counts[k] = 0
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -143,17 +150,46 @@ def _setup_context(ctx, inputs, output) -> None:
 
 
 def _backward(ctx, grad: torch.Tensor):
-    """Gradients of the plain version, recomputed from the saved inputs
-    (a named range of a profiler's trace, which gives its device time)."""
-    q, k, v = (t.detach().requires_grad_(True) for t in ctx.saved_tensors)
-    with torch.profiler.record_function(BACKWARD_RANGE), torch.enable_grad():
-        out = flash_attention_ref(q, k, v, causal=ctx.causal,
-                                  window=ctx.window, scale=ctx.scale)
-        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
+    q, k, v = ctx.saved_tensors
+    dq, dk, dv = torch.ops.repro_torch.flash_attention_backward(
+        grad, q, k, v, ctx.causal, ctx.window, ctx.scale)
     return dq, dk, dv, None, None, None
 
 
 flash_attention_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_backward",
+                         mutates_args=())
+def flash_attention_backward_op(
+        grad: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+        v: torch.Tensor, causal: bool, window: int,
+        scale: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The attention's gradients (dq, dk, dv) for the output's gradient
+    ``grad``: the plain version recomputed from q, k and v and
+    differentiated by autograd, on any device (a named range of a
+    profiler's trace, which gives its device time)."""
+    backward_calls["flash_attention_backward"] += 1
+    # an op's body runs below autograd (the dispatcher excludes its keys
+    # from here down): let autograd back in to differentiate the plain
+    # version, as its caller would
+    exclude = (torch._C._dispatch_tls_local_exclude_set()
+               - torch._C.DispatchKeySet(
+                   torch._C.DispatchKey.AutogradFunctionality))
+    with torch.profiler.record_function(BACKWARD_RANGE), \
+            torch._C._ForceDispatchKeyGuard(
+                torch._C._dispatch_tls_local_include_set(), exclude), \
+            torch.enable_grad():
+        q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+        out = flash_attention_ref(q, k, v, causal=causal, window=window,
+                                  scale=scale)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), grad)
+    return dq, dk, dv
+
+
+@flash_attention_backward_op.register_fake
+def _(grad, q, k, v, causal, window, scale):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,

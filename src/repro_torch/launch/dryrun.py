@@ -23,6 +23,10 @@ Usage:
     python -m repro_torch.launch.dryrun --arch granite-3-2b --shape train_4k
     python -m repro_torch.launch.dryrun --all [--multi-pod] [--single-pod]
 
+A sweep runs each cell in a process of its own, as many at once as the
+host has cores. It ends with each mesh's count of ok, failed and skipped
+cells and its seconds.
+
 Records go to ``dryrun_results_torch/`` at the repo root (``--out``).
 """
 import argparse
@@ -301,6 +305,21 @@ def _write(record, out_dir):
         json.dump(record, f, indent=2)
 
 
+def _run(cell) -> dict:
+    """One (arch, shape, multi_pod, out_dir) cell's record; a cell that
+    raises gets a failed record with its ``failure()``."""
+    a, s, mp, out = cell
+    try:
+        return run_cell(a, s, mp, out_dir=out)
+    except Exception as e:
+        traceback.print_exc()
+        record = {"arch": a, "shape": s,
+                  "mesh": "pod2x16x16" if mp else "pod16x16",
+                  "status": "failed", "error": failure(e)}
+        _write(record, out)
+        return record
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -326,21 +345,38 @@ def main(argv=None):
     else:
         cells.append((args.arch, args.shape))
 
-    failures = []
-    for a, s in cells:
-        for mp in meshes:
-            try:
-                run_cell(a, s, mp, out_dir=args.out)
-            except Exception as e:
-                failures.append((a, s, mp, failure(e)))
-                traceback.print_exc()
-                _write({"arch": a, "shape": s,
-                        "mesh": "pod2x16x16" if mp else "pod16x16",
-                        "status": "failed", "error": failure(e)}, args.out)
+    t0 = time.time()
+    tasks = [(a, s, mp, args.out) for a, s in cells for mp in meshes]
+    if len(tasks) > 1:
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        # a module function (``__main__``'s would not unpickle in the
+        # spawned workers)
+        from repro_torch.launch import dryrun
+
+        # each cell in a process of its own: a world torn down for one of
+        # another size leaves DTensor's caches holding meshes whose
+        # process groups are gone
+        with ProcessPoolExecutor(
+                min(len(tasks), os.cpu_count() or 1),
+                mp_context=multiprocessing.get_context("spawn"),
+                max_tasks_per_child=1) as pool:
+            records = list(pool.map(dryrun._run, tasks))
+    else:
+        records = [_run(t) for t in tasks]
+    for mesh in sorted({r["mesh"] for r in records}):
+        counts = {k: sum(r["mesh"] == mesh and r["status"] == k
+                         for r in records)
+                  for k in ("ok", "failed", "skipped")}
+        print(f"{mesh}: {counts['ok']} ok, {counts['failed']} failed, "
+              f"{counts['skipped']} skipped")
+    print(f"{time.time() - t0:.0f} s")
+    failures = [r for r in records if r["status"] == "failed"]
     if failures:
         print(f"\n{len(failures)} FAILURES:")
-        for f in failures:
-            print("  ", f)
+        for r in failures:
+            print("  ", (r["arch"], r["shape"], r["mesh"], r["error"]))
         raise SystemExit(1)
     print("\nall cells OK")
 

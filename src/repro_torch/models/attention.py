@@ -31,11 +31,16 @@ from repro_torch.kernels.decode_attention.ops import decode_attention
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, norm_apply, norm_spec
 from repro_torch.models.param import ParamSpec
-from repro_torch.parallel.constraints import constrain, constrain_heads
+from repro_torch.parallel.constraints import (constrain,
+                                              constrain_attention,
+                                              constrain_heads)
+from repro_torch.parallel.local import cache_write_
 
 # the fused projections' logical axes (B, S, H*D)
 _FUSED_Q = ("act_batch", None, "act_model")
 _FUSED_KV = ("act_batch", None, "act_kv_heads")
+# the split heads' (B, H, S, D)
+_HEADS = ("act_batch", "act_model", None, None)
 
 
 class CacheSpec(NamedTuple):
@@ -130,21 +135,25 @@ def attn_apply(
         return _mla_apply(params, cfg, x, positions)
     s = x.shape[1]
     q, k, v = _qkv(params, cfg, x)
-    # q heads shard over "model"; kv heads often < model size, so kv stays
-    # on the projections' sharding. seq stays local here even under
+    # q heads shard over "model" (kv heads often < model size: see
+    # constrain_attention). seq stays local here even under
     # sequence-parallel residual streams (attention needs the full
     # sequence per head).
-    q = constrain(q, ("act_batch", "act_model", None, None))
+    q = constrain(q, _HEADS)
     if positions is None:
         positions = torch.arange(s, device=x.device)
     if cfg.attention != AttentionKind.BIDIR:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    q, k, v = constrain_attention(q, k, v, _HEADS)
     causal = cfg.attention != AttentionKind.BIDIR
     out = flash_attention(q, k, v, causal=causal,
                           window=_window(cfg, window_override))
-    out = constrain(out, ("act_batch", "act_model", None, None))
-    return _project(params, _merge_heads(out), "wo", "bo")
+    out = constrain(out, _HEADS)
+    # the fused layout the heads split from, for the gradient on its way
+    # back through the merge
+    merged = constrain_heads(_merge_heads(out), cfg.n_heads, _FUSED_Q)
+    return _project(params, merged, "wo", "bo")
 
 
 # ------------------------------------------------------------- GQA decode
@@ -199,13 +208,17 @@ def attn_decode(
     q, k, v = _qkv(params, cfg, x)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)    # (B, H, 1, hd)
     k = apply_rope(k, pos[:, None], cfg.rope_theta)
+    # on a mesh the query takes the cache's layout (its kv heads or its
+    # head dim split), so that no device gathers the cache
+    q = constrain(q, ("act_batch", "act_kv_heads", None, "act_head_dim"))
 
     cache_k, cache_v = cache["k"], cache["v"]
     cache_len = cache_k.shape[2]
     slot = (cache["length"] % cache_len).long()   # ring-buffer slot
+    # in place, each device its own shard on a mesh
     bidx = torch.arange(b, device=x.device)
-    cache_k[bidx, :, slot] = k[:, :, 0].to(cache_k.dtype)
-    cache_v[bidx, :, slot] = v[:, :, 0].to(cache_v.dtype)
+    cache_write_(cache_k, k[:, :, 0].to(cache_k.dtype), slot, bidx, seq_dim=2)
+    cache_write_(cache_v, v[:, :, 0].to(cache_v.dtype), slot, bidx, seq_dim=2)
     new_len = cache["length"] + 1
     valid = torch.clamp(new_len, max=cache_len)
 
@@ -285,8 +298,9 @@ def _mla_decode(params: Mapping, cfg: ArchConfig, x: torch.Tensor,
     cache_len = ckv.shape[1]
     slot = (cache["length"] % cache_len).long()
     bidx = torch.arange(b, device=x.device)
-    ckv[bidx, slot] = ckv_new[:, 0].to(ckv.dtype)
-    krope[bidx, slot] = krope_new[:, 0].to(krope.dtype)
+    cache_write_(ckv, ckv_new[:, 0].to(ckv.dtype), slot, bidx, seq_dim=1)
+    cache_write_(krope, krope_new[:, 0].to(krope.dtype), slot, bidx,
+                 seq_dim=1)
     new_len = cache["length"] + 1
     valid = torch.clamp(new_len, max=cache_len)
 

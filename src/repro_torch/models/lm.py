@@ -59,6 +59,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.param import ParamSpec, abstract, init_tensor
 from repro_torch.parallel.constraints import constrain
+from repro_torch.parallel.local import grouped
 
 
 # ------------------------------------------------------------- block layout
@@ -109,6 +110,28 @@ def _window(cfg: ArchConfig, kind: str) -> Optional[int]:
     return cfg.rglru.attn_window if kind == "attn_local" else None
 
 
+def _stream(y: torch.Tensor) -> torch.Tensor:
+    """A sub-block's output as the residual stream is laid out. On a mesh
+    its row-parallel output projection leaves partial sums over the
+    model axis; reducing them here (Megatron's all-reduce, or its
+    reduce-scatter where the stream is sequence-sharded) keeps the next
+    norm and projection sharded, where DTensor would otherwise carry the
+    partial sums on and run them whole on every device of the axis.
+    Without rules it is a no-op."""
+    return constrain(y, ("act_batch", "act_seq", None))
+
+
+def _whole_sequence(h: torch.Tensor) -> torch.Tensor:
+    """A sub-block's (or the head's) input with its whole sequence on
+    each device. Where the residual stream is sequence-sharded
+    (Megatron's sequence parallelism) this is its all-gather before the
+    projections, which then see a plain batch-split layout (DTensor
+    plans products over a sequence split on top of the batch split by a
+    search that takes minutes on the 2x16x16 mesh). Without rules it is
+    a no-op."""
+    return constrain(h, ("act_batch", None, None))
+
+
 class Block(nn.Module):
     """One pre-norm layer of one kind (``_block_kind``): ``"attn"``
     (attention, then the MLP or the mixture of experts), ``"attn_local"``
@@ -139,16 +162,17 @@ class Block(nn.Module):
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """-> (x, the MoE router's aux loss, or None)."""
         cfg = self.cfg
-        h = L.norm_apply(self.ln1, cfg, x)
+        h = _whole_sequence(L.norm_apply(self.ln1, cfg, x))
         if self.kind == "ssm":
-            return x + ssm_mod.ssm_apply(self.ssm, cfg, h), None
+            return x + _stream(ssm_mod.ssm_apply(self.ssm, cfg, h)), None
         if self.kind == "rec":
-            x = x + rglru_mod.rglru_apply(self.rec, cfg, h)
+            x = x + _stream(rglru_mod.rglru_apply(self.rec, cfg, h))
         else:
-            x = x + attn.attn_apply(self.attn, cfg, h, positions=positions,
-                                    window_override=_window(cfg, self.kind))
-        y, aux = self._ffn(L.norm_apply(self.ln2, cfg, x))
-        return x + y, aux
+            x = x + _stream(attn.attn_apply(
+                self.attn, cfg, h, positions=positions,
+                window_override=_window(cfg, self.kind)))
+        y, aux = self._ffn(_whole_sequence(L.norm_apply(self.ln2, cfg, x)))
+        return x + _stream(y), aux
 
     def decode(self, x: torch.Tensor, cache: Dict,
                pos: torch.Tensor) -> Tuple[torch.Tensor, Dict]:
@@ -288,7 +312,7 @@ class LanguageModel(nn.Module):
             x = constrain(x, ("act_batch", "act_seq", None))
             if a is not None:
                 aux = aux + a
-        x = L.norm_apply(self.final_norm, self.cfg, x)
+        x = _whole_sequence(L.norm_apply(self.final_norm, self.cfg, x))
         logits = L.lm_logits(self.embedding, x)
         logits = constrain(logits, ("act_batch", None, "act_model"))
         return logits, aux
@@ -378,8 +402,15 @@ class LanguageModel(nn.Module):
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    ll = torch.take_along_dim(lp, labels.long()[..., None], dim=-1)[..., 0]
+    # each row picks its label's log-probability: on a mesh each device
+    # picks its own rows' (and their gradient, a scatter into zeros of
+    # the rows' shape, stays on them)
+    ll = grouped(_pick, 1, lp, labels)
     return -ll.mean()
+
+
+def _pick(lp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    return torch.take_along_dim(lp, labels.long()[..., None], dim=-1)[..., 0]
 
 
 # what "dots" keeps: the aten ops a ``@`` or an einsum lowers to, and the

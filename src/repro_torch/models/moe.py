@@ -22,6 +22,7 @@ router's load-balancing aux loss is returned for the train loss.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, NamedTuple, Tuple
 
 import torch
@@ -30,6 +31,7 @@ from repro_torch.config.types import ArchConfig
 from repro_torch.models.layers import _act
 from repro_torch.models.param import ParamSpec
 from repro_torch.parallel.constraints import constrain
+from repro_torch.parallel.local import grouped, token_fraction
 
 F32 = torch.float32
 
@@ -143,6 +145,15 @@ def route(params: Mapping, cfg: ArchConfig, x: torch.Tensor):
     return probs, top_p, top_i
 
 
+def _token_frac(top_i: torch.Tensor, e: int, total: int) -> torch.Tensor:
+    """(E,) float32: each expert's share of the ``total`` token-expert
+    assignments, counted from those in ``top_i``."""
+    token_frac = torch.zeros((e,), dtype=F32, device=top_i.device)
+    token_frac.scatter_add_(0, top_i.reshape(-1), torch.full(
+        (top_i.numel(),), 1.0 / total, dtype=F32, device=top_i.device))
+    return token_frac
+
+
 def moe_apply(params: Mapping, cfg: ArchConfig,
               x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss). Grouped (per-batch-row) dispatch."""
@@ -154,14 +165,14 @@ def moe_apply(params: Mapping, cfg: ArchConfig,
     probs, top_p, top_i = route(params, cfg, x)
 
     # load-balance aux loss (Switch): E * sum_e f_e * P_e (global)
-    token_frac = torch.zeros((e,), dtype=F32, device=x.device)
-    token_frac.scatter_add_(0, top_i.reshape(-1), torch.full(
-        (b * s * k,), 1.0 / (b * s * k), dtype=F32, device=x.device))
+    token_frac = token_fraction(
+        functools.partial(_token_frac, e=e, total=b * s * k), top_i)
     prob_frac = probs.mean(dim=(0, 1))
     aux = e * torch.sum(token_frac * prob_frac) * m.router_aux_loss
 
     # ---- grouped dispatch: one group per batch row -------------------------
-    buf, state = dispatch(x, top_i, _capacity(s, cfg), e)
+    buf, state = grouped(functools.partial(dispatch, cap=_capacity(s, cfg),
+                                           e=e), 5, x, top_i)
     # groups (batch rows) shard over data; experts shard over model: on a
     # mesh this boundary is the MoE all-to-all
     buf = constrain(buf, ("act_batch", "act_model", None, None))
@@ -169,11 +180,15 @@ def moe_apply(params: Mapping, cfg: ArchConfig,
     # ---- expert FFN ---------------------------------------------------------
     g = _act(cfg, torch.einsum("gecd,edf->gecf", buf, params["wg"]))
     h = g * torch.einsum("gecd,edf->gecf", buf, params["wi"])
+    # on a mesh: one dense layout for the shards and the whole alike (the
+    # einsum's output order on each device can differ from the one
+    # DTensor records for the whole, and the next einsum views it)
+    h = constrain(h, ("act_batch", "act_model", None, None))
     out = torch.einsum("gecf,efd->gecd", h, params["wo"])
     out = constrain(out, ("act_batch", "act_model", None, None))
 
     # ---- combine ------------------------------------------------------------
-    y = combine(out, top_p, state)
+    y = grouped(combine, 1, out, top_p, state)
     y = constrain(y, ("act_batch", "act_seq", None))
 
     # ---- shared experts -----------------------------------------------------

@@ -26,6 +26,8 @@ from repro_torch.config.types import ArchConfig
 from repro_torch.models.attention import CacheSpec
 from repro_torch.models.param import ParamSpec
 from repro_torch.models.ssm import causal_conv, softplus
+from repro_torch.parallel.constraints import constrain
+from repro_torch.parallel.local import grouped
 
 F32 = torch.float32
 _C = 8.0
@@ -120,12 +122,21 @@ def _combine(c1, c2):
     return a1 * a2, a2 * b1 + b2
 
 
+def _scan(a: torch.Tensor, gated: torch.Tensor) -> List[torch.Tensor]:
+    """The recurrence ``h_t = a_t * h_{t-1} + gated_t`` along the
+    sequence, as an associative scan of (a, gated) pairs."""
+    return associative_scan(_combine, (a, gated), axis=1)
+
+
 def rglru_apply(params: Mapping, cfg: ArchConfig,
                 x: torch.Tensor) -> torch.Tensor:
     """Train/prefill. x: (B, S, d)."""
-    y = _conv(params, x @ params["in_y"])
+    # on a mesh: the width split over "model", the sequence whole for the
+    # scan, which then runs on each device's rows and channels
+    y = constrain(_conv(params, x @ params["in_y"]),
+                  ("act_batch", None, "act_model"))
     a, gated = _gates(params, y)                       # (b,s,w) each
-    _, h = associative_scan(_combine, (a, gated), axis=1)
+    _, h = grouped(_scan, 2, a, gated, heads=(2, 2, 2, 2))
     gate = F.gelu(x @ params["in_gate"], approximate="tanh")
     return (h.to(x.dtype) * gate) @ params["out"]
 

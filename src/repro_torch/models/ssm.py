@@ -29,6 +29,7 @@ tensor keeps its address from step to step.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Tuple
 
 import torch
@@ -37,6 +38,8 @@ import torch.nn.functional as F
 from repro_torch.config.types import ArchConfig
 from repro_torch.models.attention import CacheSpec
 from repro_torch.models.param import ParamSpec
+from repro_torch.parallel.constraints import constrain
+from repro_torch.parallel.local import grouped
 
 F32 = torch.float32
 
@@ -145,6 +148,10 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
     return (yf * torch.rsqrt(var + 1e-6) * scale.to(F32)).to(dtype)
 
 
+# the (B, S, channels) activations split on their channels over "model"
+_FUSED = ("act_batch", None, "act_model")
+
+
 def ssm_apply(params: Mapping, cfg: ArchConfig,
               x: torch.Tensor) -> torch.Tensor:
     """Train/prefill. x: (B, S, d)."""
@@ -155,16 +162,19 @@ def ssm_apply(params: Mapping, cfg: ArchConfig,
     n = s_cfg.state_dim
     p = s_cfg.head_dim
 
-    proj = x @ params["in_proj"]
-    z = proj[..., :inner]
+    # on a mesh: the fused projection's gradient keeps its split (the
+    # slices below gather it), and the mixer runs on each device's heads
+    proj = constrain(x @ params["in_proj"], _FUSED)
+    z = constrain(proj[..., :inner], _FUSED)
     xbc = proj[..., inner:inner + inner + 2 * n]
-    dt = proj[..., -heads:]
+    dt = constrain(proj[..., -heads:], _FUSED)
 
     # causal depthwise conv over [x, B, C]
     conv = causal_conv(xbc, params["conv_w"].to(xbc.dtype))
     conv = F.silu(conv + params["conv_b"].to(conv.dtype))
 
-    xs = conv[..., :inner].reshape(b, s, heads, p)
+    xs = constrain(conv[..., :inner].reshape(b, s, heads, p),
+                   ("act_batch", None, "act_model", None))
     Bm = conv[..., inner:inner + n]
     Cm = conv[..., inner + n:]
 
@@ -175,7 +185,9 @@ def ssm_apply(params: Mapping, cfg: ArchConfig,
     chunk = min(s_cfg.chunk_size, s)
     if s % chunk:
         chunk = 1
-    y, _ = ssd_chunked(xdt, a, Bm, Cm, chunk)
+    # each batch row and head on its own: on a mesh, each device's
+    y, _ = grouped(functools.partial(ssd_chunked, chunk=chunk), 2,
+                   xdt, a, Bm, Cm, heads=(2, 2, None, None, 2, 1))
     y = y + params["D"][None, None, :, None] * xs.to(F32)
     y = y.reshape(b, s, inner).to(x.dtype)
     y = _gated_norm(y, z, params["norm_scale"], x.dtype)

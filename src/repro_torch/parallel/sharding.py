@@ -259,30 +259,51 @@ _REGISTERED = []
 
 
 def register_op_shardings() -> None:
-    """Tell DTensor how the port's attention op
-    (``torch.ops.repro_torch.flash_attention``) shards: q, k, v and the
-    output all replicated, or all split on the batch dim, or all on the
-    heads dim (each device attends its own heads), this last only where
-    every mesh axis divides both head counts (a shard's query heads must
-    be the groups of its kv heads). Once per process."""
+    """Tell DTensor how the port's attention ops shard: the forward
+    (``torch.ops.repro_torch.flash_attention``: q, k, v -> out) and its
+    backward (``torch.ops.repro_torch.flash_attention_backward``: grad,
+    q, k, v -> dq, dk, dv) take, on each mesh dim, one of three ways
+    for all their tensors at once: replicated, split on the batch dim,
+    or split on the heads dim (each device attends its own heads).
+
+    The heads way is offered only where every mesh axis divides both
+    head counts, so that a shard's query heads are the groups of its kv
+    heads (query head ``i`` reads kv head ``i // (Hq / Hkv)`` locally as
+    globally). Where the model axis divides the query heads but not the
+    kv heads (8 kv heads or 1 over a 16-way axis), the model code first
+    repeats each kv head up to the axis's size
+    (``parallel.constraints.constrain_attention``): kv head ``j`` of the
+    repeated ``Hkv * r`` is kv head ``j // r``, the groups stay aligned,
+    and the attention shards its query heads instead of running whole on
+    every device of the axis. Where the axis does not divide the query
+    heads either, the same code splits the batch over it (the batch way
+    on both mesh dims). Once per process."""
     if _REGISTERED:
         return
     import torch
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import register_sharding
 
-    import repro_torch.kernels.flash_attention.kernel  # noqa: F401  the op
+    import repro_torch.kernels.flash_attention.kernel  # noqa: F401  the ops
+
+    def ways(q, k):
+        out = [Replicate(), Shard(0)]
+        if all(q.shape[1] % n == 0 and k.shape[1] % n == 0
+               for n in q.mesh.shape):
+            out.append(Shard(1))
+        return out
 
     @register_sharding(torch.ops.repro_torch.flash_attention.default)
     def _attention(q, k, v, causal, window, scale):
-        ways = [Replicate(), Shard(0)]
-        if all(q.shape[1] % n == 0 and k.shape[1] % n == 0
-               for n in q.mesh.shape):
-            ways.append(Shard(1))
-        rest = [None, None, None]
-        return [([p], [p, p, p] + rest) for p in ways]
+        return [([p], [p, p, p, None, None, None]) for p in ways(q, k)]
 
-    _REGISTERED.append(_attention)
+    @register_sharding(
+        torch.ops.repro_torch.flash_attention_backward.default)
+    def _attention_backward(grad, q, k, v, causal, window, scale):
+        return [([p, p, p], [p, p, p, p, None, None, None])
+                for p in ways(q, k)]
+
+    _REGISTERED.extend((_attention, _attention_backward))
 
 
 def _axis_size(mesh, axes) -> int:

@@ -14,13 +14,17 @@ meta DTensors over a ``fake``-backend world (``launch/dryrun.py``), and
   shapes of each op. ``torch.utils.flop_counter.FlopCounterMode`` alone
   sees a DTensor op at its global shapes; :class:`ProgramCost` lets
   DTensor lower each op to its local ops first and applies the flop
-  counter's formulas to those. Bytes follow XLA's "bytes accessed"
-  convention: every operand and output of every op that is not a view.
+  counter's formulas to those (the port's attention ops by the formulas
+  beside them). To find an op's global output shape DTensor runs it
+  once on fake tensors: that run is no device's work and is not
+  counted. Bytes follow XLA's "bytes accessed" convention: every
+  operand and output of every op that is not a view; an in-place
+  indexed write (the decode step's cache write) counts the indices and
+  values it reads and the values it writes, not the whole tensor, as
+  XLA counts its in-place update of a donated buffer.
 * *Collective bytes by kind* are the output bytes of each collective
-  DTensor emits (:class:`ProgramCost` is a
-  ``torch.distributed.tensor.debug.CommDebugMode``, which counts them).
-  Over a CPU mesh DTensor lowers an all-to-all to an all-gather, which
-  is then counted as one.
+  DTensor emits. Over a CPU mesh DTensor lowers an all-to-all to an
+  all-gather, which is then counted as one.
 * *Peak memory per device* is the most local bytes live at once: the
   step's arguments, then every op's output from its creation until the
   tensor is freed.
@@ -37,9 +41,10 @@ from typing import Dict, Optional
 
 import torch
 from torch.distributed.tensor import DTensor
-from torch.distributed.tensor.debug import CommDebugMode
+from torch._subclasses.fake_tensor import FakeTensor
+from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
-from torch.utils.flop_counter import flop_registry
+from torch.utils.flop_counter import flop_registry, sdpa_backward_flop_count
 
 from repro_torch.utils.tree import tree_leaves
 
@@ -192,6 +197,10 @@ _COLLECTIVE_OPS = {
 _FUNCOL = ("_c10d_functional", "c10d_functional")
 # ops that move no bytes of their own
 _NO_BYTES = {"detach", "alias", "lift_fresh", "wait_tensor"}
+# in-place indexed writes: they touch the rows they write, not the whole
+# tensor (XLA's in-place dynamic-update-slice of a donated buffer)
+_INDEXED_WRITES = {"index_put_", "index_copy_", "index_add_", "scatter_",
+                   "scatter_add_"}
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -199,13 +208,26 @@ def _nbytes(t: torch.Tensor) -> int:
 
 
 def _attention_flops(q, k, v, *_args, **_kw) -> int:
-    """The port's attention op: q·kᵀ and p·v over every (query, key) pair,
-    as the flop counter counts ``scaled_dot_product_attention``."""
+    """The port's attention op: q·kᵀ and p·v over every (query, key)
+    pair, 4·B·Hq·Sq·Sk·D, as the flop counter counts
+    ``scaled_dot_product_attention``."""
     b, hq, sq, d = q.shape
     return 4 * b * hq * sq * k.shape[2] * d
 
 
-class ProgramCost(CommDebugMode):
+def _attention_backward_flops(grad, q, k, v, *_args, **_kw) -> int:
+    """Its backward op, as the flop counter counts SDPA's backward: the
+    scores recomputed, then the gradients of p·v and of q·kᵀ, five
+    products, 2·B·Hq·Sq·Sk·(3·D + 2·Dv) = 10·B·Hq·Sq·Sk·D."""
+    return sdpa_backward_flop_count(tuple(grad.shape), tuple(q.shape),
+                                    tuple(k.shape), tuple(v.shape))
+
+
+_OP_FLOPS = {"flash_attention": _attention_flops,
+             "flash_attention_backward": _attention_backward_flops}
+
+
+class ProgramCost(TorchDispatchMode):
     """A dispatch mode that counts what one device does while a step
     runs on DTensors: FLOPs, bytes accessed, collective bytes by kind
     and the peak of live bytes, all at the local shards' shapes.
@@ -244,26 +266,34 @@ class ProgramCost(CommDebugMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         # a DTensor op returns NotImplemented here: DTensor lowers it to
         # collectives and local ops, which come back through this mode
-        out = super().__torch_dispatch__(func, types, args, kwargs)
-        if out is NotImplemented or isinstance(func,
-                                               torch._ops.HigherOrderOperator):
-            return out
+        if any(t is DTensor for t in types):
+            return NotImplemented
         kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if isinstance(func, torch._ops.HigherOrderOperator):
+            return out
+        flat = tree_flatten((args, kwargs))[0]
+        if any(isinstance(a, FakeTensor)
+               for a in flat + tree_flatten(out)[0]):
+            return out      # DTensor's run for the global output shape
         name = func._opname
         packet = func._overloadpacket
-        if func.namespace == "repro_torch" and name == "flash_attention":
-            self.flops += _attention_flops(*args, **kwargs)
+        if func.namespace == "repro_torch" and name in _OP_FLOPS:
+            self.flops += _OP_FLOPS[name](*args, **kwargs)
         elif packet in flop_registry:
             self.flops += flop_registry[packet](*args, **kwargs, out_val=out)
-        ins = [a for a in tree_flatten((args, kwargs))[0]
-               if isinstance(a, torch.Tensor)]
+        ins = [a for a in flat if isinstance(a, torch.Tensor)]
         outs = [o for o in tree_flatten(out)[0]
                 if isinstance(o, torch.Tensor)]
         if func.namespace in _FUNCOL and name in _COLLECTIVE_OPS:
             self.collectives[_COLLECTIVE_OPS[name]] += sum(map(_nbytes, outs))
         if func.is_view or name in _NO_BYTES:
             return out
-        self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        if name in _INDEXED_WRITES:
+            # in place: the indices and values read, the values written
+            self.bytes += sum(map(_nbytes, ins[1:])) + _nbytes(ins[-1])
+        else:
+            self.bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         for o in outs:
             if any(o is a for a in ins):     # written in place
                 continue

@@ -25,6 +25,7 @@ import torch
 
 from repro_torch.config.types import RunConfig
 from repro_torch.models.lm import LanguageModel
+from repro_torch.parallel.constraints import constrain
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, global_norm
 from repro_torch.train.schedule import warmup_cosine
 from repro_torch.utils.tree import tree_leaves
@@ -49,9 +50,15 @@ def _on_device(batch: Mapping, device: torch.device) -> Dict:
 
 
 def _split_microbatches(batch: Dict, n: int) -> List[Dict]:
-    split = {k: x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))
-             for k, x in batch.items()}
-    return [{k: x[i] for k, x in split.items()} for i in range(n)]
+    """Microbatch ``i`` holds the rows ``[i·B/n, (i+1)·B/n)`` of each
+    field, as the reference's reshape to ``(n, B/n, ...)`` gives them. On
+    a mesh a microbatch's rows lie on a part of the devices the batch is
+    split over: the slice gathers them (DTensor's all-gather) and the
+    constraint splits the microbatch over the batch axes again."""
+    rows = next(iter(batch.values())).shape[0] // n
+    return [{k: constrain(x[i * rows:(i + 1) * rows],
+                          ("act_batch",) + (None,) * (x.dim() - 1))
+             for k, x in batch.items()} for i in range(n)]
 
 
 def make_train_step(model: LanguageModel, run: RunConfig) -> Callable:
@@ -77,8 +84,10 @@ def make_train_step(model: LanguageModel, run: RunConfig) -> Callable:
         batch = _on_device(batch, model.device)
         if n_micro > 1:
             loss = torch.zeros((), dtype=torch.float32, device=model.device)
-            grads = [torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for p in params]
+            # each accumulator laid out as its parameter (on a mesh, its
+            # shards)
+            grads = [torch.zeros_like(p, dtype=torch.float32)
+                     for p in params]
             for mb in _split_microbatches(batch, n_micro):
                 mb_loss, mb_grads = value_and_grad(params, mb)
                 for acc, g in zip(grads, mb_grads):
@@ -121,7 +130,10 @@ def make_decode_step(model: LanguageModel, run: RunConfig) -> Callable:
     def decode_step(tokens, cache, pos):
         """One new token per sequence against the KV cache."""
         logits, new_cache = model.decode_step(tokens, cache, pos)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        # on a mesh each device takes its rows' whole vocab first (DTensor's
+        # argmax over a split vocab fails for a row per device)
+        next_tok = torch.argmax(constrain(logits, ("act_batch", None)),
+                                dim=-1).to(torch.int32)
         return next_tok, logits, new_cache
 
     return decode_step

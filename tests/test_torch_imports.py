@@ -89,6 +89,7 @@ MOE_MODULES = [
 # the dry run, the roofline and the two dense configs
 PARALLEL_MODULES = [
     "repro_torch.parallel.constraints", "repro_torch.parallel.sharding",
+    "repro_torch.parallel.local",
     "repro_torch.parallel.compression", "repro_torch.parallel",
     "repro_torch.launch.mesh", "repro_torch.launch.input_specs",
     "repro_torch.launch.dryrun",

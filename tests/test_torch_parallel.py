@@ -13,12 +13,15 @@ shards; ``constrain`` on a ``fake``-backend world's DTensors; the
 production meshes; ``TrainState.pspecs``, ``model_flops``,
 ``skip_reason`` and the dry run's stand-ins against the reference's for
 every arch x shape; and the dry run on a 2x4 mesh in a subprocess (its
-process group never touches this one), held to the fields the
-reference's ``test_dryrun_small_mesh`` checks, not to its numbers.
+process group never touches this one): held to the fields the
+reference's ``test_dryrun_small_mesh`` checks, a reduced cell for each
+fault the production sweep had, and its FLOPs per device against the
+reference's own small-mesh script's (within 1.5x).
 
 The port's models keep per-layer parameters, so the reference to hold
 them to is ``build_model(cfg, scan_layers=False)``.
 """
+import ast
 import json
 import os
 import subprocess
@@ -519,9 +522,11 @@ _DRYRUN = textwrap.dedent("""
     report = analyze_program(cost, cfg.name, shape.name, "mesh2x4", 8,
                              model_flops=1.0)
     try:
-        dry_step(reduced_config(get_arch("moonshot-v1-16b-a3b")), shape,
-                 par, mesh, rules)
-        moe = None
+        moe_cost, _, _ = dry_step(
+            reduced_config(get_arch("moonshot-v1-16b-a3b")), shape, par,
+            mesh, rules)
+        moe = {"flops": moe_cost.flops,
+               "collectives": moe_cost.collectives}
     except Exception as e:
         moe = failure(e)
     print(json.dumps({
@@ -538,9 +543,9 @@ _DRYRUN = textwrap.dedent("""
 
 def test_dryrun_small_mesh():
     """Twin of ``test_dryrun_small_mesh``: reduced granite's train step on
-    a 2x4 mesh, meta DTensors over a ``fake`` world, in its own process.
-    The MoE's ``scatter_add_`` has no DTensor rule: that cell fails and
-    the message names the line."""
+    a 2x4 mesh, meta DTensors over a ``fake`` world, in its own process;
+    then the reduced MoE's train step on the same mesh, which runs (the
+    router's aux loss and the grouped dispatch shard on the batch)."""
     env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
     out = subprocess.run([sys.executable, "-c", _DRYRUN], env=env,
                          capture_output=True, text=True, timeout=420)
@@ -552,7 +557,110 @@ def test_dryrun_small_mesh():
     assert rec["breakdown"]["all-gather"] > 0          # the FSDP gather
     assert rec["bottleneck"] in ("compute", "memory", "collective")
     assert rec["record"]["t_compute_s"] > 0
-    assert "moe.py" in rec["moe"] and "scatter_add_" in rec["moe"]
+    assert isinstance(rec["moe"], dict), rec["moe"]
+    assert rec["moe"]["flops"] > 0
+    assert rec["moe"]["collectives"]["all-reduce"] > 0   # the aux's sum
+
+
+# one case per fault the dry run had on the production meshes: the
+# in-place cache write (GQA and MLA decode, the sequence-sharded
+# long-context cache), the MoE's aux loss and dispatch, the microbatch
+# split, and heads that do not divide the model axis (recurrentgemma at
+# 3 layers, so that one block is attention, and 6 heads over 4 as its
+# 10 over 16, its residual stream sequence-sharded as the dry run
+# shards it): (arch, kind, batch, microbatches, sequence-sharded
+# stream, config overrides)
+_CELLS = {
+    "granite_decode": ("granite-3-2b", "decode", 8, 1, False, {}),
+    "deepseek_mla_decode": ("deepseek-v3-671b", "decode", 8, 1, False, {}),
+    "danube_long_decode": ("h2o-danube-1.8b", "long_decode", 1, 1, False,
+                           {}),
+    "moonshot_prefill": ("moonshot-v1-16b-a3b", "prefill", 8, 1, False, {}),
+    "moonshot_train": ("moonshot-v1-16b-a3b", "train", 8, 1, False, {}),
+    "granite_microbatches": ("granite-3-2b", "train", 8, 2, False, {}),
+    "recurrentgemma_train": ("recurrentgemma-2b", "train", 8, 1, True,
+                             {"n_layers": 3, "n_heads": 6}),
+}
+
+_CELL = textwrap.dedent("""
+    import dataclasses, json, logging, sys
+    logging.disable(logging.WARNING)
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.config import get_arch, reduced_config
+    from repro_torch.config.types import ParallelConfig, ShapeConfig
+    from repro_torch.launch.dryrun import _rules, dry_step, fake_world
+    from repro_torch.parallel.sharding import MeshAxes
+
+    arch, kind, batch, micro, seq_shard, over = json.loads(sys.argv[1])
+    fake_world(8)
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    shape = ShapeConfig("tiny", 64, batch, kind)
+    par = ParallelConfig(fsdp=True, microbatches=micro,
+                         remat="dots" if kind == "train" else "none",
+                         seq_shard_attn=seq_shard)
+    cfg = dataclasses.replace(reduced_config(get_arch(arch)), **over)
+    cost, _, _ = dry_step(cfg, shape, par, mesh,
+                          _rules(cfg, shape, MeshAxes(mesh), par))
+    print(json.dumps({"flops": cost.flops, "bytes": cost.bytes,
+                      "temp_bytes": cost.temp_bytes,
+                      "collectives": cost.collectives}))
+""")
+
+
+@pytest.mark.parametrize("cell", sorted(_CELLS))
+def test_dryrun_small_mesh_repaired_cells(cell):
+    """Each cell runs on the 2x4 mesh with the dry run's rules for its
+    shape, and its device communicates."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    out = subprocess.run([sys.executable, "-c", _CELL,
+                          json.dumps(_CELLS[cell])], env=env,
+                         capture_output=True, text=True, timeout=420)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    assert rec["flops"] > 0 and rec["bytes"] > 0 and rec["temp_bytes"] > 0
+    assert sum(rec["collectives"].values()) > 0
+
+
+def _reference_script() -> str:
+    """``SCRIPT`` of ``tests/test_dryrun_mechanism.py``, read from its
+    source (a ``textwrap.dedent`` of one string literal)."""
+    path = os.path.join(REPO, "tests", "test_dryrun_mechanism.py")
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    node = next(n for n in tree.body if isinstance(n, ast.Assign)
+                and n.targets[0].id == "SCRIPT")
+    return textwrap.dedent(ast.literal_eval(node.value.args[0]))
+
+
+def test_dryrun_counts_near_the_reference():
+    """The reference's own small-mesh script (``tests/
+    test_dryrun_mechanism.py``), its mesh's axes made ``Auto`` as its
+    sharding rules need, against the port's count of the same cell:
+    reduced granite's train step on 2x4. XLA counts elementwise and
+    transcendental work besides the products, the port only what the
+    flop counter counts, so a port count above the reference's is work
+    done more than once; it stays within 1.5x. The products are most of
+    the step's work, so a count below half the reference's is work the
+    counter missed."""
+    SCRIPT = _reference_script()
+    mesh_line = 'mesh = jax.make_mesh((2, 4), ("data", "model"))'
+    assert mesh_line in SCRIPT
+    ref_script = SCRIPT.replace(mesh_line, (
+        "from jax.sharding import AxisType\n"
+        'mesh = jax.make_mesh((2, 4), ("data", "model"), '
+        "axis_types=(AxisType.Auto,) * 2)"))
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    runs = {}
+    for name, script in (("reference", ref_script), ("port", _DRYRUN)):
+        out = subprocess.run([sys.executable, "-c", script], env=env,
+                             capture_output=True, text=True, timeout=420)
+        assert out.returncode == 0, out.stderr[-3000:]
+        runs[name] = json.loads(out.stdout.strip().splitlines()[-1])
+    ref, port = runs["reference"], runs["port"]
+    report = ", ".join(
+        f"{k}: port {port[k]:.4g} reference {ref[k]:.4g}"
+        for k in ("flops", "temp_bytes", "collective_bytes"))
+    assert 0.5 * ref["flops"] <= port["flops"] <= 1.5 * ref["flops"], report
 
 
 def test_dryrun_records_a_skipped_cell(tmp_path):
