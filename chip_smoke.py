@@ -26,7 +26,8 @@ paths:
 * the LM serving path at granite-3-2b's full width and depth: the
   forward against token-by-token decode in float32 (the attention
   kernels on every layer), then a bfloat16 prefill of 4 x 2048 tokens
-  and ``ServeEngine.generate`` on 8 ragged requests;
+  and ``ServeEngine.generate`` on 8 ragged requests (its last 8 steps
+  replayed from their saved state under the profiler);
 * the LM training path with the CARAT-tuned PFS input pipeline: the
   training launcher (reduced granite-3-2b, CARAT off and on, each
   host's stage-1 decisions scored by ``gbdt_logits`` and equal to a
@@ -35,7 +36,11 @@ paths:
   ``remat="dots"``, ``flash_attention`` forward on every layer with the
   plain version's gradient), and three train steps on the card against
   the CPU's at the peak learning rate (losses, grad norms, gradients,
-  parameters);
+  parameters) for reduced granite and every other family (the MoE
+  archs' dispatch states equal); then flash attention with its gradient
+  at each family's heads and mamba2-370m, recurrentgemma-2b,
+  paligemma-3b and hubert-xlarge trained at full width and depth as
+  granite;
 * CARAT's models: the production GBDT pair regenerated under the
   paper's §IV-B protocol (byte-equal to the committed assets), Table IV
   (``train_all_models``) with the nets trained on the card, and each net
@@ -89,6 +94,8 @@ prints no result.
 """
 from __future__ import annotations
 
+import bisect
+import contextlib
 import hashlib
 import json
 import os
@@ -100,7 +107,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -642,13 +649,10 @@ def _device_busy_ms(fn: Callable[[], object], dev, top: int = 0,
         fn()
         sync(dev)
     wall = time.perf_counter() - t0
-    busy_ms, heaviest = _device_time(prof, top)
-    by_kernel = {}
-    for name in kernels:
-        hits = [e for e in prof.key_averages()
-                if re.search(rf"\b{name}_kernel\b", e.key)]
-        by_kernel[name] = [sum(e.self_device_time_total for e in hits) / 1e3,
-                           sum(e.count for e in hits)]
+    trace = _Trace.of(prof)
+    busy_ms, heaviest = trace.device(top)
+    by_kernel = {name: trace.kernel_ms(rf"\b{name}_kernel\b")
+                 for name in kernels}
     return busy_ms, wall, heaviest, by_kernel
 
 
@@ -657,21 +661,92 @@ def _profiler():
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def _device_time(prof, top: int = 0):
-    """The device-side events of a stopped profiler: their summed ms (or
-    None where it recorded none) and the ``top`` entries with the most
-    time (name, device ms, count). A named range's device-side span
-    covers kernels counted already, and is left out."""
-    from torch.autograd import DeviceType
-    on_device = [e for e in prof.key_averages()
-                 if e.device_type != DeviceType.CPU
-                 and not getattr(e, "is_user_annotation", False)
-                 and e.key not in _named_ranges()]
-    busy_us = sum(e.self_device_time_total for e in on_device)
-    ranked = sorted(on_device, key=lambda e: -e.self_device_time_total)
-    heaviest = [[e.key[:60], e.self_device_time_total / 1e3, e.count]
-                for e in ranked[:top]]
-    return (busy_us / 1e3 if busy_us > 0 else None), heaviest
+# the Chrome trace's categories of device work (kernels, copies,
+# memsets), of named ranges on the host and on the device, and of the
+# host's launches
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+RANGE_CAT, DEVICE_RANGE_CAT = "user_annotation", "gpu_user_annotation"
+LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+
+
+class _Trace:
+    """A stopped profiler's Chrome trace (``export_chrome_trace``, which
+    the profiler writes from its C++ side), read once: building the
+    profiler's Python events (``key_averages``) for a train step or 8
+    decode steps of a deep model takes tens of seconds on the host.
+    Its complete events (``"ph": "X"``; durations in microseconds)."""
+
+    def __init__(self, events: List[Dict]):
+        self.events = [e for e in events if e.get("ph") == "X"]
+
+    @classmethod
+    def of(cls, prof) -> "_Trace":
+        build = ROOT / "build"
+        build.mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(prefix="trace_", dir=build) as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                return cls(json.load(f)["traceEvents"])
+
+    def device(self, top: int = 0):
+        """The summed ms of the device's kernels, copies and memsets (None
+        where there are none; a named range's device-side span covers
+        kernels counted already, and is left out) and the ``top`` names
+        with the most time (name, ms, count)."""
+        by_name: Dict[str, List] = {}
+        for e in self.events:
+            if e.get("cat") in DEVICE_CATS:
+                row = by_name.setdefault(e["name"], [0.0, 0])
+                row[0] += e["dur"] / 1e3
+                row[1] += 1
+        busy = sum(ms for ms, _ in by_name.values())
+        ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+        return ((busy if busy > 0 else None),
+                [[name[:60], ms, n] for name, (ms, n) in ranked[:top]])
+
+    def kernel_ms(self, pattern: str) -> List:
+        """[device ms, launches] of the kernels whose name matches the
+        regular expression ``pattern``."""
+        hits = [e["dur"] for e in self.events
+                if e.get("cat") == "kernel" and re.search(pattern, e["name"])]
+        return [sum(hits) / 1e3, len(hits)]
+
+    def range_ms(self, name: str, cuda: bool) -> Dict:
+        """A named range: its calls and, on the card, its kernels' device
+        ms (``device``: the device work launched from inside the range on
+        the host, matched by the launches' correlation ids) and its span
+        on the device, the gaps between those kernels included (``span``);
+        on the CPU both are its host ms."""
+        host = [e for e in self.events
+                if e.get("cat") == RANGE_CAT and e["name"] == name]
+        if not cuda:
+            ms = sum(e["dur"] for e in host) / 1e3
+            return {"calls": len(host), "device": ms, "span": ms}
+        spans: Dict[tuple, List] = {}
+        for r in host:
+            spans.setdefault((r["pid"], r["tid"]), []).append(
+                (r["ts"], r["ts"] + r["dur"]))
+        for s in spans.values():
+            s.sort()
+
+        def launched_inside(e) -> bool:
+            s = spans.get((e["pid"], e["tid"]), [])
+            i = bisect.bisect_right(s, (e["ts"], float("inf"))) - 1
+            return i >= 0 and e["ts"] <= s[i][1]
+
+        inside = {e["args"]["correlation"] for e in self.events
+                  if e.get("cat") in LAUNCH_CATS
+                  and "correlation" in e.get("args", {})
+                  and launched_inside(e)}
+        return {"calls": len(host),
+                "device": sum(e["dur"] for e in self.events
+                              if e.get("cat") in DEVICE_CATS
+                              and e.get("args", {}).get("correlation")
+                              in inside) / 1e3,
+                "span": sum(e["dur"] for e in self.events
+                            if e.get("cat") == DEVICE_RANGE_CAT
+                            and e["name"] == name) / 1e3}
 
 
 def _check_probe_batches(models, timers) -> int:
@@ -1372,31 +1447,6 @@ def _attn_kernels():
     return fa, dec
 
 
-def _named_ranges() -> tuple:
-    """The port's profiler ranges: K2's backward and the AdamW update."""
-    from repro_torch.kernels.flash_attention import kernel as fa
-    from repro_torch.train.step import UPDATE_RANGE
-    return (fa.BACKWARD_RANGE, UPDATE_RANGE)
-
-
-def _range_ms(prof, name: str, cuda: bool) -> Dict:
-    """A named range of a stopped profiler: its calls and, on the card,
-    its kernels' device ms (``device``) and its span on the device, the
-    gaps between those kernels included (``span``); on the CPU both are
-    its host ms."""
-    from torch.autograd import DeviceType
-    events = [e for e in prof.key_averages() if e.key == name]
-    host = [e for e in events if e.device_type == DeviceType.CPU]
-    calls = sum(e.count for e in host)
-    if not cuda:
-        ms = sum(e.cpu_time_total for e in host) / 1e3
-        return {"calls": calls, "device": ms, "span": ms}
-    return {"calls": calls,
-            "device": sum(e.device_time_total for e in host) / 1e3,
-            "span": sum(e.self_device_time_total for e in events
-                        if e.device_type != DeviceType.CPU) / 1e3}
-
-
 def _n_attn(model) -> int:
     """The attention blocks of a model: one K2 launch each per forward,
     one K3 launch each per decode step (the SSM and RG-LRU blocks launch
@@ -1419,17 +1469,20 @@ class _Dispatches:
     ``repro_torch.models.moe.dispatch`` (which ``moe_apply`` looks up at
     each call) and keeps each call's assignment and dropped counts as
     device scalars (read once, at the end) and, with ``keep_states``,
-    its integer state on the host."""
+    its integer state, its experts (``top_i``) and its router's
+    probabilities (``moe.route``, wrapped likewise) on the host."""
 
     def __init__(self, keep_states: bool = False):
         self.keep_states = keep_states
         self.counts: List = []
         self.states: List = []
+        self.experts: List = []
+        self.probs: List = []
         self.capacities: List[int] = []
 
     def __enter__(self) -> "_Dispatches":
         from repro_torch.models import moe
-        self._moe, self._dispatch = moe, moe.dispatch
+        self._moe, self._dispatch, self._route = moe, moe.dispatch, moe.route
 
         def recorded(x, top_i, cap, e):
             buf, state = self._dispatch(x, top_i, cap, e)
@@ -1438,19 +1491,57 @@ class _Dispatches:
                 self.capacities.append(cap)
             if self.keep_states:
                 self.states.append([t.cpu() for t in state])
+                self.experts.append(top_i.cpu())
             return buf, state
 
+        def routed(params, cfg, x):
+            probs, top_p, top_i = self._route(params, cfg, x)
+            self.probs.append(probs.detach().cpu())
+            return probs, top_p, top_i
+
         moe.dispatch = recorded
+        if self.keep_states:
+            moe.route = routed
         return self
 
     def __exit__(self, *exc) -> None:
-        self._moe.dispatch = self._dispatch
+        self._moe.dispatch, self._moe.route = self._dispatch, self._route
 
     def assignments(self) -> int:
         return sum(n for n, _ in self.counts)
 
     def dropped(self) -> int:
         return int(sum(int(d.item()) for _, d in self.counts))
+
+    def difference(self, other: "_Dispatches") -> Optional[Dict]:
+        """Where ``other``'s dispatches first part from these (both kept
+        with ``keep_states``): the call, the group (batch row), the token,
+        its experts in each run and its router margin here (its k-th
+        largest probability less the next); None where every state is
+        equal."""
+        import torch
+        if len(self.states) != len(other.states):
+            return {"calls": [len(self.states), len(other.states)]}
+        for c, (x, y) in enumerate(zip(self.states, other.states)):
+            if all(torch.equal(a, b) for a, b in zip(x, y)):
+                continue
+            mine, theirs = self.experts[c], other.experts[c]
+            rows = (mine != theirs).any(-1).nonzero()
+            if len(rows):
+                g, t = (int(i) for i in rows[0])
+            else:
+                # the same experts, another order or capacity: the first
+                # assignment that differs, and its token
+                a, b = next((a, b) for a, b in zip(x, y)
+                            if not torch.equal(a, b))
+                g, j = (int(i) for i in (a != b).nonzero()[0])
+                t = int(x[1][g, j])                      # tok_of
+            k = mine.shape[-1]
+            p = self.probs[c][g, t].sort(descending=True).values
+            return {"call": c, "group": g, "token": t,
+                    "experts": [mine[g, t].tolist(), theirs[g, t].tolist()],
+                    "router_margin": float(p[k - 1] - p[k])}
+        return None
 
 
 def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
@@ -1544,14 +1635,17 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     ``prefill_batch`` prompts of ``prefill_len`` tokens; (b)
     ``ServeEngine.generate`` on ``n_requests`` prompts of ``prompt0 +
     prompt_step * i`` tokens, ``max_new`` new tokens each. Launch counts
-    are zeroed just before each and read just after. A repeat of (b),
-    traced over its last ``profile_steps`` steps, gives the device's busy
-    time in those steps; over their untraced time in (b) that is the
-    device's idle share. The warm-up prefill counts the MoE layers'
-    dropped assignments; for an MoE arch its logits must equal the timed
-    prefill's bit for bit (the combine has no atomics). MLA decodes by
-    the absorbed einsums: no ``decode_attention`` launch. Every cache
-    buffer keeps its address through (b) (a gate: the writes are in
+    are zeroed just before each and read just after. (b) sets aside the
+    state of its last ``profile_steps`` steps (a copy of every cache
+    tensor, the step's tokens and positions); after (b) those steps run
+    again from that state, copied back into the same buffers, under the
+    profiler: their tokens must equal (b)'s, and their device busy time
+    over their untraced time in (b) is the device's idle share. The
+    warm-up prefill counts the MoE layers' dropped assignments; for an
+    MoE arch its logits must equal the timed prefill's bit for bit (the
+    combine has no atomics). MLA decodes by the absorbed einsums: no
+    ``decode_attention`` launch. Every cache buffer keeps its address
+    through (b) and through the replay (a gate: the writes are in
     place)."""
     import torch
     from repro_torch.models.lm import build_model
@@ -1607,64 +1701,76 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
                                  "dropped": disp.dropped(),
                                  "capacity": disp.capacities}
 
-    # (b) generate, every step's logits checked finite on the device; the
-    # hooks run before each step with its index. Each step's cache
-    # buffers (KV, latent, state: all but the (B,) lengths, new each
-    # step) are held to the addresses of the first step's (host reads)
+    # (b) generate, every step's logits checked finite on the device.
+    # Each step's cache buffers (KV, latent, state: all but the (B,)
+    # lengths, new each step) are held to the addresses of the first
+    # step's (host reads). Before the last ``profile_steps`` steps the
+    # step's inputs and a copy of every cache tensor are set aside, and
+    # those steps' logits are kept: the copy's seconds leave the run's
+    # time, its bytes the run's peak
+    cuda = dev.type == "cuda"
     flags: List = []
-    hooks: List[Callable[[int], None]] = []
-    step = model.decode_step
     addresses: List = []
+    tail: Dict = {"logits": []}
+    step = model.decode_step
 
     def buffers(cache):
         return [t.data_ptr() for layer in cache
                 for k, t in sorted(layer.items()) if k != "length"]
 
+    def save_tail(logits, cache):
+        sync(dev)
+        t0 = time.perf_counter()
+        held = torch.cuda.memory_allocated(dev) if cuda else 0
+        peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+        tail.update(cache=cache, before=logits,
+                    outs=[list(q.out_tokens) for q in reqs],
+                    copies=[{k: t.clone() for k, t in layer.items()}
+                            for layer in cache])
+        sync(dev)
+        if cuda:
+            tail["bytes"] = torch.cuda.memory_allocated(dev) - held
+            tail["peak_before"] = peak
+            torch.cuda.reset_peak_memory_stats(dev)
+        tail["t0"] = time.perf_counter()
+        tail["save_s"] = tail["t0"] - t0
+
     def checked(tokens, cache, pos):
-        for hook in hooks:
-            hook(len(flags))
-        if not flags:
+        i = len(flags)
+        if i == 0:
             addresses[:] = [buffers(cache), True]
+            if tail_from == 0:
+                save_tail(None, cache)
         logits, cache = step(tokens, cache, pos)
         addresses[1] = addresses[1] and buffers(cache) == addresses[0]
         flags.append(torch.isfinite(logits).all())
+        if i >= tail_from:
+            tail["logits"].append(logits)
+        if i + 1 == tail_from:
+            # the engine's state between two steps: the cache, the last
+            # logits and the outputs so far
+            save_tail(logits, cache)
         return logits, cache
 
     model.decode_step = checked
     prompts = [[int(t) for t in
                 r.integers(0, v, size=prompt0 + prompt_step * i)]
                for i in range(n_requests)]
-    steps = max(len(p) for p in prompts) + max_new
+    max_prompt = max(len(p) for p in prompts)
+    steps = max_prompt + max_new
     gate(0 < profile_steps <= steps, "profile_steps outside 1..steps")
     tail_from = steps - profile_steps
     engine = ServeEngine(model, cache_len=cache_len,
                          cache_dtype=torch.bfloat16)
-
-    def generate(at_tail: Callable[[], object] = lambda: None):
-        """The requests through ``engine.generate``. Before the last
-        ``profile_steps`` steps it syncs and calls ``at_tail``. Returns
-        the requests and the seconds of the run and of those steps."""
-        reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
-        tail_t0: List[float] = []
-
-        def tail(i):
-            if i == tail_from:
-                sync(dev)
-                at_tail()
-                tail_t0.append(time.perf_counter())
-
-        flags.clear()
-        hooks[:] = [tail]
-        t0 = time.perf_counter()
-        engine.generate(reqs)
-        sync(dev)
-        t1 = time.perf_counter()
-        return reqs, t1 - t0, t1 - tail_t0[0]
-
-    if dev.type == "cuda":
+    reqs = [Request(prompt=p, max_new_tokens=max_new) for p in prompts]
+    if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
     _reset_attn_launches()
-    reqs, gen_s, tail_s = generate()
+    t0 = time.perf_counter()
+    engine.generate(reqs)
+    sync(dev)
+    t1 = time.perf_counter()
+    gen_s, tail_s = t1 - t0 - tail["save_s"], t1 - tail["t0"]
     launches_b = _attn_launches()
     cache_kept = addresses[1]
     gate(cache_kept, "a decode step moved a cache buffer to a new address")
@@ -1673,7 +1779,7 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
          "a request's tokens are missing or outside the vocab")
     gate(len(flags) == steps and bool(torch.stack(flags).all().item()),
          "a decode step's logits are not finite")
-    if dev.type == "cuda":
+    if cuda:
         # bfloat16: every prefill launch on the tensor-core kernel, one
         # per attention block; MLA's absorbed decode launches no
         # decode_attention, nor do SSM and RG-LRU blocks
@@ -1697,31 +1803,70 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
         "launches": launches_b,
         "cache_buffers": len(addresses[0]),
         "cache_addresses_kept": cache_kept,
-        "peak_device_bytes": (torch.cuda.max_memory_allocated(dev)
-                              if dev.type == "cuda" else None),
+        "peak_device_bytes": (max(tail["peak_before"],
+                                  torch.cuda.max_memory_allocated(dev)
+                                  - tail["bytes"]) if cuda else None),
         "first_tokens": reqs[0].out_tokens[:8]}
 
-    if dev.type == "cuda":
-        # a repeat of the same requests, traced over the same last steps
-        prof = _profiler()
+    # the last profile_steps steps of (b) again, traced: the saved cache
+    # copied back into the same buffers, the requests' outputs as they
+    # stood, and the engine's own step loop run from the saved logits to
+    # the end
+    rows = engine.prompt_rows(reqs)
+    outs = [Request(prompt=q.prompt, max_new_tokens=max_new,
+                    out_tokens=list(o)) for q, o in zip(reqs, tail["outs"])]
+    again: List = []
+
+    def recorded(tokens, cache, pos):
+        logits, cache = step(tokens, cache, pos)
+        again.append(logits)
+        return logits, cache
+
+    def replay():
+        for layer, copies in zip(tail["cache"], tail["copies"]):
+            for k, t in layer.items():
+                t.copy_(copies[k])
+        kept = buffers(tail["cache"]) == addresses[0]
+        _, cache = engine.run_steps(outs, rows, tail["cache"], tail_from,
+                                    steps, logits=tail["before"])
+        return kept and buffers(cache) == addresses[0]
+
+    model.decode_step = recorded
+    with torch.inference_mode():
         t0 = time.perf_counter()
-        again, _, traced_s = generate(prof.start)
+        with (_profiler() if cuda else contextlib.nullcontext()) as prof:
+            replay_kept = replay()
+            sync(dev)
         t1 = time.perf_counter()
-        prof.stop()
-        busy_ms, heaviest = _device_time(prof, top=12)
-        out["profiled"] = {
-            "run": f"a repeat of (b), traced over its last {profile_steps} "
-                   f"decode steps",
-            "s": t1 - t0, "trace_processing_s": time.perf_counter() - t1,
-            "decode_steps": profile_steps,
-            "same_tokens": ([q.out_tokens for q in again]
-                            == [q.out_tokens for q in reqs]),
-            "wall_ms_per_step": traced_s * 1e3 / profile_steps,
+        same_tokens = (len(again) == profile_steps
+                       and all(torch.equal(a.argmax(-1), b.argmax(-1))
+                               for a, b in zip(again, tail["logits"]))
+                       and [q.out_tokens for q in outs]
+                       == [q.out_tokens for q in reqs])
+        same_logits = all(torch.equal(a, b)
+                          for a, b in zip(again, tail["logits"]))
+    gate(replay_kept, "the tail's replay moved a cache buffer")
+    gate(same_tokens, "the tail's replay gave other tokens than (b)")
+    prof_out = out["profiled"] = {
+        "run": f"the last {profile_steps} decode steps of (b), replayed "
+               f"from their saved state in the same buffers, traced",
+        "s": t1 - t0, "decode_steps": profile_steps,
+        "same_tokens": same_tokens, "same_logits": same_logits,
+        "cache_addresses_kept": replay_kept,
+        "saved_bytes": tail.get("bytes"),
+        "save_s": tail["save_s"],
+        "wall_ms_per_step": (t1 - t0) * 1e3 / profile_steps}
+    del tail, again
+    if cuda:
+        busy_ms, heaviest = _Trace.of(prof).device(top=12)
+        prof_out.update({
+            "trace_processing_s": time.perf_counter() - t1,
             "device_busy_ms_per_step": (None if busy_ms is None
                                         else busy_ms / profile_steps),
             "device_idle_share_traced": (None if busy_ms is None
-                                         else 1.0 - busy_ms / 1e3 / traced_s),
-            "heaviest_device_ms": heaviest}
+                                         else 1.0 - busy_ms / 1e3
+                                         / (t1 - t0)),
+            "heaviest_device_ms": heaviest})
         if busy_ms is not None:
             # the traced steps' device time over the untraced time of the
             # same steps in (b) (the profiler slows the host, not the
@@ -1934,13 +2079,11 @@ def _reduced_card_vs_cpu(dev, cfg, batch: int, n_tokens: int,
                                    device=where))
                     steps.append(logits.cpu())
         runs.append((fwd.cpu(), float(aux),
-                     torch.stack(steps, 1) if steps else None, disp.states))
+                     torch.stack(steps, 1) if steps else None, disp))
     (fwd_c, aux_c, dec_c, st_c), (fwd_g, aux_g, dec_g, st_g) = runs
     fwd_err = _max_err(fwd_g, fwd_c)
     dec_err = _max_err(dec_g, dec_c) if cfg.decoder else None
-    same = len(st_c) == len(st_g) and all(
-        all(torch.equal(a, b) for a, b in zip(x, y))
-        for x, y in zip(st_c, st_g))
+    same = st_c.difference(st_g) is None
     gate(fwd_err <= DECODE_ATOL and (dec_err or 0.0) <= DECODE_ATOL,
          f"{cfg.name}: card vs CPU forward {fwd_err}, decode {dec_err}")
     gate(abs(aux_g - aux_c) <= 1e-6 * abs(aux_c),
@@ -1948,7 +2091,7 @@ def _reduced_card_vs_cpu(dev, cfg, batch: int, n_tokens: int,
     gate(same, f"{cfg.name}: a dispatch state differs from the CPU's")
     return {"arch": cfg.name, "forward_max_abs_err": fwd_err,
             "decode_max_abs_err": dec_err, "atol": DECODE_ATOL,
-            "aux": [aux_c, aux_g], "dispatches": len(st_g),
+            "aux": [aux_c, aux_g], "dispatches": len(st_g.states),
             "dispatch_states_equal": same}
 
 
@@ -2007,6 +2150,23 @@ def _free(dev) -> None:
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
+
+
+def _phase_runner(dev, out: Dict[str, Dict]) -> Callable[..., Dict]:
+    """``run(name, fn, *args, **kw)``: calls the phase ``fn``, gives its
+    result its seconds (``phase_s``) where it has none, emits it, keeps
+    it in ``out`` under ``name``, frees the card and returns it."""
+
+    def run(name: str, fn: Callable[..., Dict], *args, **kw) -> Dict:
+        t0 = time.perf_counter()
+        res = fn(*args, **kw)
+        res.setdefault("phase_s", time.perf_counter() - t0)
+        emit(res)
+        out[name] = res
+        _free(dev)
+        return res
+
+    return run
 
 
 def moe_serve_configs(moonshot, deepseek):
@@ -2112,15 +2272,7 @@ def family_phases(dev, get_arch, profile_steps: int) -> Dict[str, Dict]:
     hubert = get_arch("hubert-xlarge")
     win = rg.rglru.attn_window
     out: Dict[str, Dict] = {}
-
-    def run(name: str, fn: Callable[..., Dict], *args, **kw) -> Dict:
-        t0 = time.perf_counter()
-        res = fn(*args, **kw)
-        res.setdefault("phase_s", time.perf_counter() - t0)
-        emit(res)
-        out[name] = res
-        _free(dev)
-        return res
+    run = _phase_runner(dev, out)
 
     # K2: the hybrid's local attention (MQA 10/1, D 256, window 2048; at
     # S 4096 the window bites), the VLM's MQA (8/1, D 256; 256 patches +
@@ -2219,15 +2371,7 @@ def dense_phases(dev, get_arch, profile_steps: int) -> Dict[str, Dict]:
     intern = get_arch("internlm2-20b")
     cr = get_arch("command-r-plus-104b")
     out: Dict[str, Dict] = {}
-
-    def run(name: str, fn: Callable[..., Dict], *args, **kw) -> Dict:
-        t0 = time.perf_counter()
-        res = fn(*args, **kw)
-        res.setdefault("phase_s", time.perf_counter() - t0)
-        emit(res)
-        out[name] = res
-        _free(dev)
-        return res
+    run = _phase_runner(dev, out)
 
     for i, cfg in enumerate((intern, cr)):
         run(f"fa_{cfg.name}", phase_prefill_attention, dev, cfg.name, 4,
@@ -2303,11 +2447,10 @@ def _train_launcher(dev, steps: int, ckpt_every: int, ckpt_root: str,
     (granite-3-2b reduced, batch 8 x seq 64, 4 hosts, 2 MiB samples as
     the example), CARAT off then on. Gates: finite losses; the loss of
     step 0's batch lower after the run than at step 0; K2 launched once
-    per layer per step (``remat="dots"`` keeps its output: no relaunch);
-    K1 once per scorer call of the hosts' controllers; and the
+    per attention block per step (``remat="dots"`` keeps its output: no
+    relaunch); K1 once per scorer call of the hosts' controllers; and the
     controllers' decisions and waits equal a CPU-scored pipeline's fed
     the compute times the run measured."""
-    import contextlib
     import io
 
     import torch
@@ -2353,7 +2496,7 @@ def _train_launcher(dev, steps: int, ckpt_every: int, ckpt_root: str,
                "decisions": sum(len(c.decisions) for c in pipe.controllers),
                "scorer_calls": _scorer_calls(pipe), "launches": launches}
         if dev.type == "cuda":
-            want = {"flash_attention": cfg.n_layers * steps,
+            want = {"flash_attention": _attn_blocks(run.model) * steps,
                     "flash_attention_tc": 0, "decode_attention": 0,
                     "gbdt_logits": _scorer_calls(pipe),
                     "gbdt_grid_logits": 0}
@@ -2433,8 +2576,9 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
     timed steps' mean), the heaviest device ops, K2's device ms and the
     device ms of its backward (the plain version's gradient).
     Gates: loss and grad norm finite at every step, K2 and its backward
-    op (``flash_attention_backward``) once per layer per step, K1 once per
-    scorer call, one update range in the trace."""
+    op (``flash_attention_backward``) once per attention block per step
+    (none for an SSM), K1 once per scorer call, one update range in the
+    trace."""
     import torch
     from repro_torch.config import (CaratConfig, DataConfig, ParallelConfig,
                                     RunConfig, ShapeConfig, TrainConfig)
@@ -2482,16 +2626,17 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
     metrics = torch.stack(metrics).cpu().numpy()
     gate(bool(np.isfinite(metrics).all()), "a full-width loss or grad "
                                            "norm is not finite")
+    blocks = _attn_blocks(model)
     if cuda:
-        want = {"flash_attention": cfg.n_layers * steps,
+        want = {"flash_attention": blocks * steps,
                 "flash_attention_tc": 0, "decode_attention": 0,
                 "gbdt_logits": _scorer_calls(pipe), "gbdt_grid_logits": 0}
-        gate(launches == want, f"full-width launches {launches}, expected "
-                               f"{want}")
-        # K2's backward op: once per layer per step
-        gate(backward_calls == cfg.n_layers * steps,
-             f"{backward_calls} calls of the backward op, expected "
-             f"{cfg.n_layers * steps}")
+        gate(launches == want, f"{cfg.name} full-width launches "
+                               f"{launches}, expected {want}")
+        # K2's backward op: once per attention block per step
+        gate(backward_calls == blocks * steps,
+             f"{cfg.name}: {backward_calls} calls of the backward op, "
+             f"expected {blocks * steps}")
     mean_ms = float(np.mean([r["ms"] for r in rows]))
     # one more step under the profiler: the AdamW update's range gives
     # the split of a step (on the card, the range's span on the device:
@@ -2501,11 +2646,13 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
         state, _ = step_fn(state, batches[steps + 1])
         sync(dev)
     traced_s = time.perf_counter() - t0
-    adamw_ms = _range_ms(prof, UPDATE_RANGE, cuda)
+    trace = _Trace.of(prof)
+    adamw_ms = trace.range_ms(UPDATE_RANGE, cuda)
     gate(adamw_ms["calls"] == 1 and adamw_ms["span"] > 0.0,
          f"the traced step's update range: {adamw_ms}")
     out = {"arch": cfg.name, "params": cfg.param_count(), "layers":
-           cfg.n_layers, "d_model": cfg.d_model, "vocab": cfg.vocab_size,
+           cfg.n_layers, "attention_blocks": blocks,
+           "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "dtype": "float32", "remat": "dots", "batch": batch, "seq": seq,
            "tokens_per_step": batch * seq, "steps": steps, "init_s": init_s,
            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
@@ -2527,18 +2674,17 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
                        "wall_ms": traced_s * 1e3,
                        "adamw_calls": adamw_ms["calls"]}
     if cuda:
-        busy_ms, heaviest = _device_time(prof, top=12)
-        fa = [e for e in prof.key_averages()
-              if re.search(r"\bflash_attention(_tc)?_kernel\b", e.key)]
-        bwd = _range_ms(prof, fa_kernel.BACKWARD_RANGE, cuda)
+        busy_ms, heaviest = trace.device(top=12)
+        fa_ms, fa_launches = trace.kernel_ms(
+            r"\bflash_attention(_tc)?_kernel\b")
+        bwd = trace.range_ms(fa_kernel.BACKWARD_RANGE, cuda)
         out["profiled"].update({
             "device_busy_ms": busy_ms,
             "device_idle_share": (None if busy_ms is None
                                   else 1.0 - busy_ms / mean_ms),
             "adamw_device_ms": adamw_ms["device"],
-            "flash_attention_device_ms": sum(e.self_device_time_total
-                                             for e in fa) / 1e3,
-            "flash_attention_launches": sum(e.count for e in fa),
+            "flash_attention_device_ms": fa_ms,
+            "flash_attention_launches": fa_launches,
             # the op's backward (the plain version's gradient): its
             # kernels' device ms, its span on the device, its calls
             "flash_attention_backward_device_ms": bwd["device"],
@@ -2548,59 +2694,219 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
     return out
 
 
-def _train_parity(dev, cfg, full_cfg, seq: int, reps: int,
-                  steps: int = 3) -> Dict:
-    """(d) ``steps`` train steps of reduced ``cfg`` on ``dev`` (K2 forward)
-    and of the port on the CPU (the plain version), from the same weights,
-    with no warm-up (``warmup_steps=0``): the first step already takes the
-    peak learning rate, so every step moves the weights. Gates: every
-    step's loss at ``rel=1e-5`` and every parameter after the last step
-    at ``atol=1e-5``, the reference's bar (``tests/test_train.py:67-70``);
-    every step's grad norm at ``rel=1e-4`` and each gradient of the first
-    step within ``1e-5`` plus ``1e-4`` of its largest element, the CPU
-    tests' bar (``tests/test_torch_train.py``: float32 cancels digits in
-    the embedding's input rows); the weights moved by more than ten times
-    ``atol``. Then K2 with its gradient at ``full_cfg``'s heads, batch 8
-    x ``seq`` (:func:`phase_flash_attention_train`)."""
+class _Updates:
+    """While active, records what every AdamW update of the train step
+    receives (it wraps ``repro_torch.train.step.adamw_update``, which the
+    step looks up at each call): the gradients on the host, the learning
+    rate, the optimizer's config and the clip. :meth:`replay` runs those
+    updates with the CPU's AdamW; :meth:`slack` bounds what the
+    gradients' bars can move them."""
+
+    def __init__(self):
+        self.calls: List = []
+
+    def __enter__(self) -> "_Updates":
+        import torch
+        from repro_torch.train import step as step_mod
+        self._mod, self._update = step_mod, step_mod.adamw_update
+
+        def recorded(params, grads, state, lr, cfg, grad_clip=0.0):
+            self.calls.append(([g.detach().cpu() for g in grads],
+                               torch.as_tensor(lr).cpu(), cfg, grad_clip))
+            return self._update(params, grads, state, lr, cfg,
+                                grad_clip=grad_clip)
+
+        step_mod.adamw_update = recorded
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._mod.adamw_update = self._update
+
+    def replay(self, params: List) -> List:
+        """Copies of the CPU tensors ``params`` after the recorded updates
+        (the recorded gradients, learning rates, config and clip) by the
+        CPU's AdamW from a fresh state."""
+        from repro_torch.train import AdamWConfig, TrainState
+        from repro_torch.train.optimizer import adamw_update
+        state = TrainState.init([p.clone() for p in params], AdamWConfig())
+        for grads, lr, cfg, clip in self.calls:
+            state["params"], state["opt"] = adamw_update(
+                state["params"], grads, state["opt"], lr, cfg,
+                grad_clip=clip)
+        return state["params"]
+
+    def slack(self, atol: float, grad_rel: float) -> List[np.ndarray]:
+        """Per element of every leaf, in float64: how far the recorded
+        updates can move it when each step's gradient ``g`` may lie
+        anywhere within its bar ``atol + grad_rel * max|g|`` (after the
+        clip), where ``g`` lies within that bar of 0 at some step, and 0
+        elsewhere. AdamW moves an element by ``lr * (m/c1) / (sqrt(v/c2)
+        + eps)``; with the moments' ranges over the bars each step's
+        move has a range, inside ``lr`` times the most ``|m/c1| /
+        sqrt(v/c2)`` can be for any gradients (1 at the first step), and
+        the bound is the sum over the steps of the move's largest
+        distance from its value at the recorded gradients (weight
+        decay's share, ``lr * wd`` of a parameter's difference, is left
+        out). Where a true gradient is ~0 (a key
+        bias's is exactly 0: softmax ignores a shift shared by every
+        key), float32 rounding, ~1e-8 there on either device, decides
+        the sign of a move of up to ``lr`` (``tests/test_torch_lm.py``'s
+        ``test_train_step_matches_reference`` holds one step the same
+        way)."""
+        out, near, moments = [], [], []
+        for t, (grads, lr, cfg, clip) in enumerate(self.calls, start=1):
+            b1, b2 = cfg.b1, cfg.b2
+            g64 = [g.double().numpy() for g in grads]
+            scale = 1.0
+            if clip > 0:
+                norm = np.sqrt(sum(float((g * g).sum()) for g in g64))
+                scale = min(1.0, clip / max(norm, 1e-12))
+            if not out:
+                out = [np.zeros_like(g) for g in g64]
+                near = [np.zeros(g.shape, bool) for g in g64]
+                # m, its range's half-width, v, v's lowest and highest
+                moments = [[np.zeros_like(g) for _ in range(5)]
+                           for g in g64]
+            c1, c2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+            # the largest |m/c1| / sqrt(v/c2) of any gradients (Cauchy-
+            # Schwarz over the steps' weights)
+            most = np.sqrt(sum(((1 - b1) * b1 ** k / c1) ** 2
+                               / ((1 - b2) * b2 ** k / c2)
+                               for k in range(t)))
+            for i, g in enumerate(g64):
+                bar = scale * (atol + grad_rel * float(np.abs(g).max()))
+                g = scale * g
+                m, dm, v, v_lo, v_hi = moments[i]
+                m[:] = b1 * m + (1 - b1) * g
+                dm[:] = b1 * dm + (1 - b1) * bar
+                v[:] = b2 * v + (1 - b2) * g * g
+                v_lo[:] = b2 * v_lo + (1 - b2) * np.maximum(
+                    np.abs(g) - bar, 0.0) ** 2
+                v_hi[:] = b2 * v_hi + (1 - b2) * (np.abs(g) + bar) ** 2
+                move = m / c1 / (np.sqrt(v / c2) + cfg.eps)
+                den_lo = np.sqrt(v_lo / c2) + cfg.eps
+                den_hi = np.sqrt(v_hi / c2) + cfg.eps
+                hi, lo = (m + dm) / c1, (m - dm) / c1
+                hi = np.where(hi > 0, hi / den_lo, hi / den_hi)
+                lo = np.where(lo < 0, lo / den_lo, lo / den_hi)
+                hi, lo = np.minimum(hi, most), np.maximum(lo, -most)
+                out[i] += float(lr) * np.maximum(hi - move, move - lo)
+                near[i] |= np.abs(g) <= bar
+        return [np.where(n, b, 0.0) for n, b in zip(near, out)]
+
+
+def _attn_blocks(model) -> int:
+    """K2 launches of one training forward: every attention block of the
+    stack and, where there is one, the MTP head's block (it runs in the
+    loss only)."""
+    return _n_attn(model) + (model.mtp is not None)
+
+
+# the archs of lm_train (e): every family beside granite's dense one at
+# its reduced config; recurrentgemma at 3 layers, whose third block is
+# its local attention (the reduced 2 are both RG-LRU blocks); danube's
+# sliding window of 8 bites in its 64-token rows
+PARITY_ARCHS = (("moonshot-v1-16b-a3b", None), ("deepseek-v3-671b", None),
+                ("mamba2-370m", None), ("recurrentgemma-2b", 3),
+                ("paligemma-3b", None), ("hubert-xlarge", None),
+                ("h2o-danube-1.8b", None))
+
+
+def parity_configs() -> List:
+    import dataclasses
+
+    from repro_torch.config import get_arch, reduced_config
+    out = []
+    for name, depth in PARITY_ARCHS:
+        cfg = reduced_config(get_arch(name))
+        out.append(cfg if depth is None
+                   else dataclasses.replace(cfg, n_layers=depth))
+    return out
+
+
+def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
+                  seq: int = 64, batch: int = 8,
+                  seeds: Tuple[int, int] = (9, 5),
+                  keep: Optional[Dict] = None) -> Dict:
+    """``steps`` train steps of reduced ``cfg`` on ``dev`` (K2 forward)
+    and of the port on the CPU (the plain version), from the same weights
+    (``seeds``: the init's, the token source's), with no warm-up
+    (``warmup_steps=0``): the first step already takes the peak learning
+    rate, so every step moves the weights. The batches are the family's
+    (``make_host_batch``: tokens, patches before them, frames), ``batch``
+    x ``seq``. Gates: every step's loss at ``rel=1e-5`` and every
+    parameter after the last step at ``atol=1e-5`` of the CPU's, the
+    reference's bars (``tests/test_train.py:67-70``); every step's grad
+    norm at ``rel=1e-4`` and each gradient of the first step within
+    ``1e-5`` plus ``1e-4`` of its largest element, the CPU tests' bar
+    (``tests/test_torch_train.py``: float32 cancels digits in the
+    embedding's input rows), and so every step's gradients as the step
+    hands them to AdamW; the weights moved by more than ten times
+    ``atol``. With ``slack``, an element whose CPU gradient lies within
+    its bar of 0 at some step may lie further from the CPU's by what the
+    gradient bars can move AdamW's steps there (:meth:`_Updates.slack`);
+    reduced granite, lm_train (d), is held without it. Besides, the
+    parameters at ``atol`` of the CPU's AdamW fed the gradients the
+    card's steps computed (:meth:`_Updates.replay`: the card's optimizer
+    step). Every MoE dispatch of both runs (the first step's gradient and
+    the steps, recomputes included) with equal integer states (where one
+    differs: its token, experts and router margin); on the card, K2 (the
+    SIMT kernel) and its backward op once per attention block (the MTP
+    head's included) per step, and K2 never on the CPU. ``keep``, where
+    given, receives the runs before any gate is read (the initial
+    weights, the batches, the run's config, the paths, each side's first
+    gradients, parameters and slack; ``chip_train_float64.py``)."""
     import torch
     from repro_torch.config import (ParallelConfig, RunConfig, ShapeConfig,
                                     TrainConfig)
     from repro_torch.data import TokenSource, make_host_batch
+    from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models.lm import build_model
     from repro_torch.train import (AdamWConfig, TrainState, make_loss_fn,
                                    make_train_step)
     from repro_torch.utils.tree import tree_flatten_with_paths, tree_leaves
+    t_run = time.perf_counter()
     cpu = torch.device("cpu")
     loss_rel, grad_rel, atol = 1e-5, 1e-4, 1e-5
-    run = RunConfig(arch=cfg, shape=ShapeConfig("t", 64, 8, "train"),
+    run = RunConfig(arch=cfg, shape=ShapeConfig("t", seq, batch, "train"),
                     parallel=ParallelConfig(remat="dots"),
                     train=TrainConfig(warmup_steps=0))
-    source = TokenSource(cfg.vocab_size, 5)
-    batches = [make_host_batch(cfg, 64, 8, source, i) for i in range(steps)]
+    source = TokenSource(cfg.vocab_size, seeds[1])
+    batches = [make_host_batch(cfg, seq, batch, source, i)
+               for i in range(steps)]
     host = build_model(cfg, device=cpu, dtype=torch.float32)
-    host.init(torch.Generator().manual_seed(9))
+    host.init(torch.Generator().manual_seed(seeds[0]))
     card = build_model(cfg, device=dev, dtype=torch.float32)
     card.load_state_dict(host.state_dict())
+    blocks = _attn_blocks(host)
     init = [p.detach().clone() for p in tree_leaves(host.param_tree())]
     paths = [p for p, _ in tree_flatten_with_paths(host.param_tree())]
     out = {}
     for name, model in (("cpu", host), ("card", card)):
         step_fn = make_train_step(model, run)     # the parameters trainable
         state = TrainState.init(model.param_tree(), AdamWConfig())
-        # the first step's gradients: the step's own loss function
-        loss = make_loss_fn(model, run)(batches[0])
-        grads = [g.cpu() for g in torch.autograd.grad(
-            loss, tree_leaves(state["params"]))]
-        _reset_attn_launches()
-        metrics = []
-        for b in batches:
-            state, m = step_fn(state, b)
-            metrics.append(torch.stack([m["loss"], m["grad_norm"], m["lr"]]))
+        with _Dispatches(keep_states=True) as disp:
+            # the first step's gradients: the step's own loss function (a
+            # parameter the loss does not read gets zeros, as in the step)
+            loss = make_loss_fn(model, run)(batches[0])
+            grads = [g.cpu() for g in torch.autograd.grad(
+                loss, tree_leaves(state["params"]), materialize_grads=True)]
+            _reset_attn_launches()
+            metrics = []
+            with _Updates() as updates:
+                for b in batches:
+                    state, m = step_fn(state, b)
+                    metrics.append(torch.stack([m["loss"], m["grad_norm"],
+                                                m["lr"]]))
+            k2 = _attn_launches()
+            bwd = fa_kernel.backward_calls["flash_attention_backward"]
         out[name] = {"metrics": torch.stack(metrics).cpu().numpy(),
                      "grads": grads,
                      "params": [p.detach().cpu()
                                 for p in tree_leaves(state["params"])],
-                     "k2": _attn_launches()["flash_attention"]}
+                     "k2": k2["flash_attention"],
+                     "k2_tc": k2["flash_attention_tc"], "bwd": bwd,
+                     "dispatches": disp, "updates": updates}
     got, want = out["card"], out["cpu"]
     rel = np.abs(got["metrics"] - want["metrics"]) / np.abs(want["metrics"])
     # each gradient's error over its bound: at most 1 passes
@@ -2608,73 +2914,175 @@ def _train_parity(dev, cfg, full_cfg, seq: int, reps: int,
                                           * float(b.abs().max()))
                   for path, a, b in zip(paths, got["grads"], want["grads"])}
     worst = max(grad_ratio, key=grad_ratio.get)
-    param_err = max(_max_err(a, b) for a, b in zip(got["params"],
-                                                   want["params"]))
+    # every step's gradients as AdamW received them, at the same bar
+    step_ratio = {(k, path): _max_err(a, b) / (atol + grad_rel
+                                               * float(b.abs().max()))
+                  for k, (mine, theirs) in enumerate(zip(
+                      got["updates"].calls, want["updates"].calls), start=1)
+                  for path, a, b in zip(paths, mine[0], theirs[0])}
+    step_worst = max(step_ratio, key=step_ratio.get)
+    # the card's parameters against the CPU's run: each element's error
+    # over its bound, atol plus (with ``slack``) what the gradient bars
+    # can move AdamW where the CPU's gradient is within its bar of 0
+    slacks = (want["updates"].slack(atol, grad_rel) if slack
+              else [np.zeros(p.shape) for p in init])
+    if keep is not None:
+        keep.update(init=init, batches=batches, run=run, paths=paths,
+                    card=got, cpu=want, slacks=slacks)
+    param_ratio, param_err, used = {}, {}, []
+    for path, a, b, extra in zip(paths, got["params"], want["params"],
+                                 slacks):
+        err = np.abs(a.double().numpy() - b.double().numpy())
+        param_ratio[path] = float((err / (atol + extra)).max())
+        param_err[path] = float(err.max())
+        used.extend(extra[err > atol].tolist())
+    with_slack = sum(int((x > 0).sum()) for x in slacks) / sum(
+        x.size for x in slacks)
+    param_worst = max(param_ratio, key=param_ratio.get)
+    replay_err = max(_max_err(a, b) for a, b in zip(
+        got["params"], got["updates"].replay(init)))
     moved = max(_max_err(a, b) for a, b in zip(want["params"], init))
-    gate(float(rel[:, 0].max()) <= loss_rel, f"train step losses on {dev} "
+    what = f"{cfg.name} on {dev}"
+    gate(float(rel[:, 0].max()) <= loss_rel, f"{what}: train step losses "
          f"off the CPU's by {rel[:, 0].tolist()} (relative)")
-    gate(float(rel[:, 1].max()) <= grad_rel, f"train step grad norms on "
-         f"{dev} off the CPU's by {rel[:, 1].tolist()} (relative)")
-    gate(grad_ratio[worst] <= 1.0, f"the gradient of {worst} on {dev} off "
+    gate(float(rel[:, 1].max()) <= grad_rel, f"{what}: train step grad "
+         f"norms off the CPU's by {rel[:, 1].tolist()} (relative)")
+    gate(grad_ratio[worst] <= 1.0, f"{what}: the gradient of {worst} off "
          f"the CPU's by {grad_ratio[worst]} times its bound")
-    gate(param_err <= atol, f"parameters after {steps} steps on {dev} off "
-                            f"the CPU's by {param_err}")
-    gate(moved > 10 * atol, f"the steps moved the weights by {moved} only")
+    gate(step_ratio[step_worst] <= 1.0, f"{what}: step {step_worst[0]}'s "
+         f"gradient of {step_worst[1]} off the CPU's by "
+         f"{step_ratio[step_worst]} times its bound")
+    gate(param_ratio[param_worst] <= 1.0, f"{what}: {param_worst} after "
+         f"{steps} steps off the CPU's by {param_err[param_worst]}, "
+         f"{param_ratio[param_worst]} times its bound")
+    gate(replay_err <= atol, f"{what}: parameters after {steps} steps off "
+                             f"the CPU's AdamW on the same gradients by "
+                             f"{replay_err}")
+    gate(moved > 10 * atol, f"{what}: the steps moved the weights by "
+                            f"{moved} only")
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "steps": steps,
+           "batch": batch, "seq": seq, "seeds": list(seeds),
+           "warmup_steps": 0, "lr": want["metrics"][:, 2].tolist(),
+           "losses_card": got["metrics"][:, 0].tolist(),
+           "losses_cpu": want["metrics"][:, 0].tolist(),
+           "loss_rel_err": float(rel[:, 0].max()),
+           "grad_norm_rel_err": float(rel[:, 1].max()),
+           "grad_worst": {"path": worst, "err_over_bound":
+                          grad_ratio[worst]},
+           "step_grad_worst": {"step": step_worst[0], "path":
+                               step_worst[1], "err_over_bound":
+                               step_ratio[step_worst]},
+           "param_max_abs_err": max(param_err.values()),
+           "param_worst": {"path": param_worst, "max_abs_err":
+                           param_err[param_worst], "err_over_bound":
+                           param_ratio[param_worst]},
+           # the elements past atol, inside their slack: how many, and
+           # the largest slack among them
+           "param_slack": {"on": slack, "share_of_elements": with_slack,
+                           "elements_past_atol": len(used),
+                           "largest": max(used, default=0.0)},
+           "param_vs_card_grads_replay": replay_err,
+           "param_max_move": moved,
+           "rel": loss_rel, "grad_rel": grad_rel, "atol": atol,
+           "attention_blocks": blocks, "k2_launches_card": got["k2"],
+           "k2_launches_cpu": want["k2"],
+           "flash_attention_backward_op_calls": got["bwd"]}
+    if cfg.moe is not None:
+        diff = want["dispatches"].difference(got["dispatches"])
+        res["moe"] = {"dispatches": len(got["dispatches"].states),
+                      "dispatch_states_equal": diff is None,
+                      "first_difference": diff}
+        gate(diff is None, f"{what}: a dispatch state differs from the "
+                           f"CPU's: {diff}")
     if dev.type == "cuda":
-        gate(got["k2"] == cfg.n_layers * steps and want["k2"] == 0,
-             f"K2 launches {got['k2']} on the card, {want['k2']} on the CPU")
-    return {"arch": cfg.name, "steps": steps, "warmup_steps": 0,
-            "lr": want["metrics"][:, 2].tolist(),
-            "losses_card": got["metrics"][:, 0].tolist(),
-            "losses_cpu": want["metrics"][:, 0].tolist(),
-            "loss_rel_err": float(rel[:, 0].max()),
-            "grad_norm_rel_err": float(rel[:, 1].max()),
-            "grad_worst": {"path": worst, "err_over_bound":
-                           grad_ratio[worst]},
-            "param_max_abs_err": param_err, "param_max_move": moved,
-            "rel": loss_rel, "grad_rel": grad_rel, "atol": atol,
-            "k2_launches_card": got["k2"],
-            "qkv_grad": phase_flash_attention_train(
-                dev, 8, full_cfg.n_heads, full_cfg.n_kv_heads,
-                full_cfg.resolved_head_dim, seq, reps)}
+        gate(got["k2"] == blocks * steps and got["k2_tc"] == 0
+             and want["k2"] == 0,
+             f"{what}: K2 launches {got['k2']} ({got['k2_tc']} on tensor "
+             f"cores) on the card, {want['k2']} on the CPU, expected "
+             f"{blocks * steps} (0) and 0")
+        gate(got["bwd"] == blocks * steps, f"{what}: {got['bwd']} calls of "
+             f"K2's backward op, expected {blocks * steps}")
+    res["s"] = time.perf_counter() - t_run
+    return res
 
 
 def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
-                                s: int, reps: int) -> Dict:
-    """K2 on the training path: float32 (the SIMT kernel), causal, with a
-    gradient. q, k and v's gradients through K2's op against the plain
-    version's autograd on ``dev``: the backward is the plain version's,
-    so they must be equal; the forward within float32's tolerance, and
-    timed (``reps`` calls) beside its bound, the plain version's and
-    SDPA's. The kernel line's ``flash_attention_simt`` row."""
+                                s: int, reps: int, causal: bool = True,
+                                window: int = 0,
+                                v_dim: Optional[int] = None,
+                                arch: Optional[str] = None) -> Dict:
+    """K2 on the training path: float32 (the SIMT kernel), with a
+    gradient, causal, sliding or bidirectional; where ``v_dim < d``
+    (MLA) v has ``v_dim`` columns zero-padded to ``d``, as the model
+    pads it, the output's padded columns must be exactly 0 and the
+    incoming gradient is 0 there (the model slices them off). q, k and
+    v's gradients through K2's op against the plain version's autograd
+    on ``dev``: the backward is the plain version's, so they must be
+    equal; the forward within float32's tolerance, and timed (``reps``
+    calls) beside its bound, the plain version's and SDPA's (a boolean
+    mask for a window). At granite's shape: the kernel line's
+    ``flash_attention_simt`` row."""
     import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.kernel import flash_attention
-    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                          flash_attention_ref)
+    t_phase = time.perf_counter()
+    v_dim = d if v_dim is None else v_dim
+    kw = dict(causal=causal, window=window)
     g = _generator(dev, 10)
     q, k, v, grad = _randn(g, dev, torch.float32, (b, hq, s, d),
-                           (b, hkv, s, d), (b, hkv, s, d), (b, hq, s, d))
+                           (b, hkv, s, d), (b, hkv, s, v_dim),
+                           (b, hq, s, v_dim))
+    v, grad = F.pad(v, (0, d - v_dim)), F.pad(grad, (0, d - v_dim))
     grads = {}
+    before = dict(fa.launches)
     for name, fn in (("kernel", flash_attention),
                      ("plain", flash_attention_ref)):
         qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
-        o = fn(*qkv, causal=True)
+        o = fn(*qkv, **kw)
         grads[name] = (o.detach(), torch.autograd.grad(o, qkv, grad))
+    sync(dev)
+    tc = fa.launches["flash_attention_tc"] - before["flash_attention_tc"]
+    launches = {"tensor_core": tc, "simt": fa.launches["flash_attention"]
+                - before["flash_attention"] - tc}
+    what = f"K2 training {arch or ''} D={d} window={window}"
+    if dev.type == "cuda":
+        gate(launches == {"tensor_core": 0, "simt": 1},
+             f"{what}: launches {launches}")
     fwd_err = _max_err(grads["kernel"][0], grads["plain"][0])
     grad_err = max(_max_err(x, y) for x, y in zip(grads["kernel"][1],
                                                   grads["plain"][1]))
-    gate(fwd_err <= ATOL["float32"], f"K2 forward off by {fwd_err}")
-    gate(grad_err == 0.0, f"K2's q/k/v gradients off the plain version's "
-                          f"by {grad_err}")
+    padded_zero = bool((grads["kernel"][0][..., v_dim:] == 0).all().item())
+    gate(fwd_err <= ATOL["float32"], f"{what}: forward off by {fwd_err}")
+    gate(grad_err == 0.0, f"{what}: q/k/v gradients off the plain "
+                          f"version's by {grad_err}")
+    gate(padded_zero, f"{what}: padded v columns gave non-zero output")
+    del grads
+    if window > 0:
+        lib_kw = {"attn_mask": attention_mask(s, s, causal=causal,
+                                              window=window, device=dev)}
+        lib_note = "a boolean window mask"
+    else:
+        lib_kw, lib_note = {"is_causal": causal}, None
     with torch.no_grad():
-        ms = time_ms(lambda: flash_attention(q, k, v), dev, reps)
-        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v), dev, reps)
-        library_ms, note = _library_ms(dev, reps, q, k, v, is_causal=True)
-    return {"shape": [b, hq, hkv, s, d], "dtype": "float32",
+        ms = time_ms(lambda: flash_attention(q, k, v, **kw), dev, reps)
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), dev,
+                           reps)
+        library_ms, gqa_note = _library_ms(dev, reps, q, k, v, **lib_kw)
+    return {"phase": "flash_attention_train", "arch": arch,
+            "shape": [b, hq, hkv, s, d], "v_dim": v_dim, "dtype": "float32",
+            "causal": causal, "window": window, "launches": launches,
             "max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
+            "padded_columns_zero": padded_zero,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "library": f"scaled_dot_product_attention ({note})",
+            "library": "scaled_dot_product_attention ("
+                       + ", ".join(n for n in (gqa_note, lib_note) if n)
+                       + ")",
             **bound(4 * (2 * q.numel() + k.numel() + v.numel()),
-                    4 * d * b * hq * _attn_pairs(s, s, True, 0))}
+                    4 * d * b * hq * _attn_pairs(s, s, causal, window)),
+            "phase_s": time.perf_counter() - t_phase}
 
 
 def phase_lm_train(dev, full_cfg, launch_steps: int, ckpt_every: int,
@@ -2682,8 +3090,10 @@ def phase_lm_train(dev, full_cfg, launch_steps: int, ckpt_every: int,
     """The LM training path with the CARAT-tuned PFS input pipeline:
     (a) the launcher, CARAT off and on; (b) a restart from a checkpoint,
     bit-exact; (c) ``full_cfg`` trained at its full width and depth;
-    (d) the card's train step against the CPU's. TF32 stays off (torch's
-    default for matrix products)."""
+    (d) the card's train step against the CPU's, reduced granite, and K2
+    with its gradient at ``full_cfg``'s heads, batch 8 x ``full_seq``;
+    (e) the same for every other family (``PARITY_ARCHS``). TF32 stays
+    off (torch's default for matrix products)."""
     import torch
     from repro_torch.config import get_arch, reduced_config
     from repro_torch.core.ml.train import get_default_models
@@ -2696,14 +3106,67 @@ def phase_lm_train(dev, full_cfg, launch_steps: int, ckpt_every: int,
     with tempfile.TemporaryDirectory(prefix="ckpt_", dir=build) as d:
         out["a"] = _train_launcher(dev, launch_steps, ckpt_every, d, models)
     out["b"] = _train_restart(dev)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    _free(dev)
     out["c"] = _train_full(dev, full_cfg, full_batch, full_seq, full_steps,
                            models)
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    _free(dev)
     out["d"] = _train_parity(dev, reduced_config(get_arch("granite-3-2b")),
-                             full_cfg, full_seq, reps=20)
+                             slack=False)
+    out["d"]["qkv_grad"] = phase_flash_attention_train(
+        dev, 8, full_cfg.n_heads, full_cfg.n_kv_heads,
+        full_cfg.resolved_head_dim, full_seq, reps=20,
+        arch=full_cfg.name)
+    out["e"] = [_train_parity(dev, cfg) for cfg in parity_configs()]
+    return out
+
+
+# lm_train (c) beside granite: the families whose float32 weights,
+# gradients and AdamW moments (16 B a parameter, 0.37-2.9 B parameters)
+# and activations fit one 80 GB card at full width and depth; the MoE
+# archs (16 B and 671 B parameters) do not
+FULL_TRAIN_ARCHS = ("mamba2-370m", "recurrentgemma-2b", "paligemma-3b",
+                    "hubert-xlarge")
+
+
+def family_train_phases(dev, get_arch, models, batch: int, seq: int,
+                        steps: int) -> Dict[str, Dict]:
+    """The training path of every family on the card, each phase emitted
+    as it ends with its seconds: K2 with its gradient (float32, SIMT) at
+    each family's full heads, ``batch`` x ``seq``: hubert's (16/16, D 80,
+    bidirectional), moonshot's (16/16, D 128), MLA's (128/128, D 192
+    with v padded from 128), recurrentgemma's local attention (10/1, D
+    256, window 2048) and danube's heads (32/8, D 80) with a window of
+    128 (its published 4096 does not bite at ``seq`` 256); then lm_train
+    (c) for each of ``FULL_TRAIN_ARCHS`` at full width and depth
+    (``_train_full``: ``steps`` steps, the CARAT-on pipeline scored by
+    ``models``). Returns them by name for the kernel line and the
+    summary."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out: Dict[str, Dict] = {}
+    run = _phase_runner(dev, out)
+    hubert = get_arch("hubert-xlarge")
+    moon = get_arch("moonshot-v1-16b-a3b")
+    ds = get_arch("deepseek-v3-671b")
+    rg = get_arch("recurrentgemma-2b")
+    danube = get_arch("h2o-danube-1.8b")
+    for name, cfg, kw in (
+            ("hubert", hubert, {"causal": False}),
+            ("moonshot", moon, {}),
+            ("mla", ds, {"v_dim": ds.mla.v_head_dim}),
+            ("rg", rg, {"window": rg.rglru.attn_window}),
+            ("danube", danube, {"window": 128})):
+        d = ds.mla.qk_head_dim if name == "mla" else cfg.resolved_head_dim
+        run(f"fa_train_{name}", phase_flash_attention_train, dev, batch,
+            cfg.n_heads, cfg.n_kv_heads, d, seq, reps=20, arch=cfg.name,
+            **kw)
+
+    def full(cfg) -> Dict:
+        return {"phase": "lm_train_full",
+                **_train_full(dev, cfg, batch, seq, steps, models)}
+
+    for name in FULL_TRAIN_ARCHS:
+        run(f"train_{name}", full, get_arch(name))
     return out
 
 
@@ -2874,6 +3337,37 @@ def phase_ml(dev, cache_dir: str, reps: int, duration_s: float,
             "radial": {"epochs": 80, "bar": 0.75, "nets": radial}}
 
 
+def summary_line(nvidia_smi: List[str], serves: List[Dict],
+                 parity_runs: List[Dict], full_runs: List[Dict]) -> Dict:
+    """What the end of the output, all that is kept of a whole run, must
+    show: the card; each served arch's cache buffers at their addresses
+    through generate and through its tail's replay; each arch trained on
+    the card against the CPU, its worst loss and gradient errors over
+    their bars and the calls of K2's backward op; each arch trained at
+    full width, its ms per step, idle share and backward op calls."""
+    return {"phase": "summary", "nvidia_smi": nvidia_smi,
+            "cache_addresses_kept": {
+                r["arch"]: [r["generate"]["cache_addresses_kept"],
+                            r["profiled"]["cache_addresses_kept"]]
+                for r in serves},
+            "lm_train_parity": {
+                r["arch"]: {"loss_over_bar": r["loss_rel_err"] / r["rel"],
+                            "grad_over_bar":
+                                r["grad_worst"]["err_over_bound"],
+                            "param_over_bar":
+                                r["param_worst"]["err_over_bound"],
+                            "backward_op_calls":
+                                r["flash_attention_backward_op_calls"]}
+                for r in parity_runs},
+            "lm_train_full": {
+                r["arch"]: {"ms_per_step": r["ms_per_step"],
+                            "device_idle_share":
+                                r["profiled"].get("device_idle_share"),
+                            "backward_op_calls":
+                                r["flash_attention_backward_op_calls"]}
+                for r in full_runs}}
+
+
 def kernel_line(phases: Dict[str, Dict], launches: Dict[str, int]) -> Dict:
     """One row per kernel: ``phases[name]`` holds its comparison with the
     plain version and its times, ``launches[name]`` its launches on the
@@ -2966,9 +3460,9 @@ def main() -> int:
     emit(phase_lm_consistency(dev, granite, batch=2, n_tokens=16,
                               cache_len=32, seed=6))
     torch.cuda.empty_cache()
-    # the trace of the profiled repeat covers 8 decode steps: reading back
-    # a trace takes ~2 s per granite step (~4 s per moonshot step) on the
-    # host, and the whole script has to end within 1200 s
+    # the traced replay covers 8 decode steps: reading back a trace takes
+    # ~2 s per granite step (~4 s per moonshot step) on the host, and the
+    # whole script has to end within 1200 s
     serve = phase_lm_serve(dev, granite, prefill_batch=4, prefill_len=2048,
                            n_requests=8, prompt0=128, prompt_step=48,
                            max_new=64, cache_len=1024,
@@ -2983,10 +3477,19 @@ def main() -> int:
     train = phase_lm_train(dev, granite, launch_steps=30, ckpt_every=10,
                            full_batch=8, full_seq=256, full_steps=6)
     emit(train)
-    torch.cuda.empty_cache()
+    _free(dev)
+    # every other family's training path: K2 with its gradient at each
+    # family's heads, then the four that fit trained at full width and
+    # depth
+    fam_train = family_train_phases(dev, get_arch, {"read": m_read,
+                                                    "write": m_write},
+                                    batch=8, seq=256, steps=6)
+    full_runs = [train["c"]] + [fam_train[f"train_{name}"]
+                                for name in FULL_TRAIN_ARCHS]
+    parity_runs = [train["d"]] + train["e"]
     train_runs = [train["a"]["carat_off"]["launches"],
-                  train["a"]["carat_on"]["launches"],
-                  train["c"]["launches"]]
+                  train["a"]["carat_on"]["launches"]] + [
+        r["launches"] for r in full_runs]
 
     # CARAT's models: the production pair regenerated, Table IV with the
     # nets on the card, the reference's bar for the nets
@@ -3044,24 +3547,18 @@ def main() -> int:
     # K1b on the CARAT runs and the training pipelines; K2's tensor-core
     # kernel in the bf16 prefills (granite's, the MoE family's, the
     # hybrid's, the VLM's, internlm2's and command-r-plus's) and hubert's
-    # encode, its SIMT kernel in the float32 training steps ((a) and (c);
-    # the tensor-core kernel is gated at 0 there), each row beside its own
-    # kernel's timing (granite's shapes); K3 in generate (granite's,
-    # moonshot's, the hybrid's, the VLM's and the dense archs'; MLA's
-    # decode and mamba2's launch none)
+    # encode, its SIMT kernel in every float32 train step on the card
+    # ((a), (c) of granite and of the four families, the card's side of
+    # (d) and (e); the tensor-core kernel is gated at 0 there), each row
+    # beside its own kernel's timing (granite's shapes); K3 in generate
+    # (granite's, moonshot's, the hybrid's, the VLM's and the dense
+    # archs'; MLA's decode and mamba2's launch none)
     serves = [serve] + moe_serves + [family[f"serve_{name}"] for name in (
         "mamba2-370m", "recurrentgemma-2b", "paligemma-3b")] + [
         dense[f"serve_{name}"] for name in (
             "internlm2-20b", "command-r-plus-104b")]
-    # where the end of the output is all that is kept: the card, each
-    # served arch's cache buffers at their addresses through generate,
-    # K2's backward op calls in lm_train (c)
-    emit({"phase": "summary", "nvidia_smi": device["nvidia_smi"],
-          "cache_addresses_kept": {
-              r["arch"]: r["generate"]["cache_addresses_kept"]
-              for r in serves},
-          "lm_train_c_backward_op_calls":
-              train["c"]["flash_attention_backward_op_calls"]})
+    emit(summary_line(device["nvidia_smi"], serves, parity_runs,
+                      full_runs))
     emit(kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
          "flash_attention": fa,
@@ -3074,7 +3571,8 @@ def main() -> int:
          + family["encode"]["launches"]["flash_attention_tc"],
          "flash_attention_simt": sum(r["flash_attention"]
                                      - r["flash_attention_tc"]
-                                     for r in train_runs),
+                                     for r in train_runs)
+         + sum(r["k2_launches_card"] for r in parity_runs),
          "decode_attention": sum(
              r["generate"]["launches"]["decode_attention"]
              for r in serves)}))

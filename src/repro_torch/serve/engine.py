@@ -37,33 +37,47 @@ class ServeEngine:
         self.cache_len = cache_len
         self.cache_dtype = cache_dtype
 
+    def prompt_rows(self, requests: List[Request]) -> torch.Tensor:
+        """The prompt tokens of every prefill step, uploaded once:
+        (max_prompt, B) int32 on the model's device; a prompt shorter than
+        the longest repeats its last token."""
+        max_prompt = max(len(r.prompt) for r in requests)
+        return torch.tensor(
+            [[r.prompt[min(t, len(r.prompt) - 1)] for r in requests]
+             for t in range(max_prompt)], dtype=torch.int32,
+            device=self.model.device)
+
+    @torch.inference_mode()
+    def run_steps(self, requests: List[Request], prompts: torch.Tensor,
+                  cache, start: int, stop: int, logits=None):
+        """Steps ``start`` to ``stop - 1`` of a static batch, step ``i`` at
+        position ``i``: its tokens are ``prompts[i]`` while there is a
+        prompt row, then the last step's argmax (the first of equal
+        maxima, as jnp.argmax), which is read on the host into every
+        unfinished request's outputs before the step runs. ``logits`` are
+        step ``start - 1``'s (none at step 0): with the cache and the
+        outputs so far, the whole state between two steps. Returns the
+        last step's logits and the cache."""
+        model = self.model
+        b = len(requests)
+        for i in range(start, stop):
+            tokens = (prompts[i] if i < len(prompts)
+                      else torch.argmax(logits, dim=-1))
+            if i >= len(prompts):
+                for r, tok in zip(requests, tokens.tolist()):
+                    if not r.done:
+                        r.out_tokens.append(int(tok))
+            logits, cache = model.decode_step(
+                tokens, cache,
+                torch.full((b,), i, dtype=torch.int32, device=model.device))
+        return logits, cache
+
     @torch.inference_mode()
     def generate(self, requests: List[Request]) -> List[Request]:
         """Run a static batch of requests to completion (greedy)."""
-        model = self.model
-        dev = model.device
-        b = len(requests)
-        cache = model.init_cache(b, self.cache_len, dtype=self.cache_dtype)
-        max_prompt = max(len(r.prompt) for r in requests)
-        # prompt tokens of every step, uploaded once: (max_prompt, B)
-        prompts = torch.tensor(
-            [[r.prompt[min(t, len(r.prompt) - 1)] for r in requests]
-             for t in range(max_prompt)], dtype=torch.int32, device=dev)
-        last_logits = None
-        for t in range(max_prompt):
-            last_logits, cache = model.decode_step(
-                prompts[t], cache,
-                torch.full((b,), t, dtype=torch.int32, device=dev))
-        # decode; argmax takes the first of equal maxima, as jnp.argmax
-        pos = max_prompt
-        cur = torch.argmax(last_logits, dim=-1)
+        cache = self.model.init_cache(len(requests), self.cache_len,
+                                      dtype=self.cache_dtype)
+        prompts = self.prompt_rows(requests)
         steps = max(r.max_new_tokens for r in requests)
-        for s in range(steps):
-            for i, tok in enumerate(cur.tolist()):
-                if not requests[i].done:
-                    requests[i].out_tokens.append(int(tok))
-            logits, cache = model.decode_step(
-                cur, cache,
-                torch.full((b,), pos + s, dtype=torch.int32, device=dev))
-            cur = torch.argmax(logits, dim=-1)
+        self.run_steps(requests, prompts, cache, 0, len(prompts) + steps)
         return requests

@@ -2,9 +2,11 @@
 the wrappers running their plain versions. It checks the script's paths,
 shapes and checks; only a run on the card can show that the kernels
 build and agree with the plain versions there."""
+import json
 import os
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -393,6 +395,50 @@ def test_ptxas_entries():
                     "spill_load_bytes": None}}
 
 
+def test_trace_reads_device_time_and_ranges():
+    """The Chrome trace's reading: the device's kernels, copies and
+    memsets by name (host ops, device-side range annotations and flow
+    events left out); a named range's calls, the device work launched
+    from inside it on its own thread (by correlation id) and its
+    device-side span; on the CPU its host ms. A CPU profiler's real
+    trace has no device time and finds its named range."""
+    def x(cat, name, ts, dur, tid=1, corr=None):
+        e = {"ph": "X", "cat": cat, "name": name, "ts": ts, "dur": dur,
+             "pid": 7, "tid": tid}
+        if corr is not None:
+            e["args"] = {"correlation": corr}
+        return e
+
+    trace = chip_smoke._Trace([
+        x("user_annotation", "step", 0.0, 100.0),
+        x("cuda_runtime", "cudaLaunchKernel", 10.0, 2.0, corr=1),
+        x("cuda_runtime", "cudaLaunchKernel", 120.0, 2.0, corr=2),
+        x("cuda_runtime", "cudaLaunchKernel", 50.0, 2.0, tid=2, corr=3),
+        x("kernel", "gemm", 200.0, 1500.0, tid=9, corr=1),
+        x("kernel", "gemm", 1800.0, 500.0, tid=9, corr=2),
+        x("kernel", "softmax_kernel", 2400.0, 250.0, tid=9, corr=3),
+        x("gpu_memcpy", "Memcpy HtoD", 2700.0, 100.0, tid=9),
+        x("gpu_memset", "Memset", 2800.0, 50.0, tid=9),
+        x("gpu_user_annotation", "step", 200.0, 1600.0, tid=9),
+        x("cpu_op", "aten::mm", 5.0, 70.0),
+        {"ph": "f", "cat": "ac2g", "name": "ac2g"}])
+    busy, top = trace.device(top=2)
+    assert busy == pytest.approx(2.4)
+    assert top == [["gemm", 2.0, 2], ["softmax_kernel", 0.25, 1]]
+    assert trace.kernel_ms(r"\bsoftmax_kernel\b") == [0.25, 1]
+    assert trace.range_ms("step", cuda=True) == {
+        "calls": 1, "device": 1.5, "span": 1.6}
+    assert trace.range_ms("step", cuda=False) == {
+        "calls": 1, "device": 0.1, "span": 0.1}
+    assert chip_smoke._Trace([]).device(top=3) == (None, [])
+    with chip_smoke._profiler() as prof:
+        with torch.profiler.record_function("a range"):
+            torch.ones(8) @ torch.ones(8)
+    real = chip_smoke._Trace.of(prof)
+    assert real.device(top=3) == (None, [])
+    assert real.range_ms("a range", cuda=False)["calls"] == 1
+
+
 def test_tensor_core_instruction_counts():
     """``phase_build``'s count of tensor-core instructions in a SASS
     listing, by opcode; None where the toolkit has no ``cuobjdump``."""
@@ -524,3 +570,364 @@ def test_lm_train_phase_on_cpu(tmp_path):
         "flash_attention_simt", "decode_attention"]
     for k in line["kernels"]:
         assert set(k) == KEYS
+
+
+# attention blocks of a training forward per arch of lm_train (e): the
+# stack's and deepseek's MTP block; none in mamba2, one (the third block)
+# in the 3-layer hybrid
+PARITY_BLOCKS = {"moonshot-v1-16b-a3b": 2, "deepseek-v3-671b": 3,
+                 "mamba2-370m": 0, "recurrentgemma-2b": 1,
+                 "paligemma-3b": 2, "hubert-xlarge": 2,
+                 "h2o-danube-1.8b": 2}
+
+
+@pytest.mark.parametrize("cfg", chip_smoke.parity_configs(),
+                         ids=lambda c: c.name)
+def test_train_parity_of_every_family_on_cpu(cfg):
+    """lm_train (e) with the CPU on both sides: the family's batch
+    through three steps from the same weights, inside every bar; the
+    weights moved; K2 counted per attention block (never launched on the
+    CPU); an MoE arch's dispatches recorded on both sides and equal."""
+    out = chip_smoke._train_parity(CPU, cfg)
+    arch = cfg.name.removesuffix("-smoke")
+    assert out["arch"] == cfg.name and out["steps"] == 3
+    assert out["attention_blocks"] == PARITY_BLOCKS[arch]
+    assert out["k2_launches_card"] == out["k2_launches_cpu"] == 0
+    assert out["flash_attention_backward_op_calls"] == 0
+    assert out["lr"][0] == pytest.approx(3e-4)       # no warm-up
+    assert out["loss_rel_err"] <= out["rel"]
+    assert out["grad_norm_rel_err"] <= out["grad_rel"]
+    assert out["grad_worst"]["err_over_bound"] <= 1.0
+    assert out["param_max_abs_err"] <= out["atol"] < \
+        out["param_max_move"] / 10
+    assert out["param_worst"]["err_over_bound"] <= 1.0
+    assert out["step_grad_worst"]["err_over_bound"] <= 1.0
+    assert out["step_grad_worst"]["step"] in (1, 2, 3)
+    assert out["param_slack"]["on"]
+    assert 0.0 <= out["param_slack"]["share_of_elements"] < 1.0
+    # on one device the CPU's AdamW fed the steps' gradients is the
+    # steps' own update, bit for bit
+    assert out["param_vs_card_grads_replay"] == 0.0
+    if cfg.moe is not None:
+        # (1 first-step gradient + 3 steps) x (the forward and its
+        # recompute of each MoE layer, and the MTP head's block, which
+        # the remat policy does not wrap)
+        assert out["moe"] == {"dispatches": 4 * (2 * cfg.n_layers
+                                                 + cfg.mtp_depth),
+                              "dispatch_states_equal": True,
+                              "first_difference": None}
+    else:
+        assert "moe" not in out
+
+
+def test_train_parity_holds_the_optimizer_step(monkeypatch):
+    """lm_train's parity also replays the card's gradients through the
+    CPU's AdamW: an optimizer step that moves the weights wrongly on
+    both sides alike (half again the learning rate) fails it, though
+    the two runs agree with each other."""
+    from repro_torch.train import optimizer
+    from repro_torch.train import step as step_mod
+
+    def too_far(params, grads, state, lr, cfg, grad_clip=0.0):
+        return optimizer.adamw_update(params, grads, state, lr * 1.5, cfg,
+                                      grad_clip=grad_clip)
+
+    monkeypatch.setattr(step_mod, "adamw_update", too_far)
+    cfg = reduced_config(get_arch("granite-3-2b"))
+    with pytest.raises(RuntimeError, match="AdamW on the same gradients"):
+        chip_smoke._train_parity(CPU, cfg)
+
+
+def test_adamw_decides_zero_gradients_by_rounding():
+    """Why lm_train (e) gives an element whose CPU gradient lies within
+    its bar of 0 the slack of ``_Updates.slack``: a key bias moves every
+    score of a query alike, which softmax ignores, so its true gradient
+    is 0 and float32 leaves rounding noise (reduced hubert: below 1e-8,
+    where its key weights' gradients pass 1e-3). AdamW's first step
+    moves an element by ``lr * g / (|g| + eps)``: noise of 1e-9, far
+    inside the gradient bar, moves the bias by more than the parameter
+    bar of 1e-5, and by no more than the slack."""
+    from repro_torch.config import (ParallelConfig, RunConfig, ShapeConfig,
+                                    TrainConfig)
+    from repro_torch.data import TokenSource, make_host_batch
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import AdamWConfig, TrainState, make_loss_fn
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.utils.tree import tree_flatten_with_paths, tree_leaves
+    cfg = reduced_config(get_arch("hubert-xlarge"))
+    run = RunConfig(arch=cfg, shape=ShapeConfig("t", 64, 8, "train"),
+                    train=TrainConfig(warmup_steps=0))
+    model = build_model(cfg, device=CPU, dtype=torch.float32)
+    model.init(torch.Generator().manual_seed(9))
+    model.requires_grad_(True)
+    batch = make_host_batch(cfg, 64, 8, TokenSource(cfg.vocab_size, 5), 0)
+    leaves = tree_leaves(model.param_tree())
+    grads = dict(zip(
+        [p for p, _ in tree_flatten_with_paths(model.param_tree())],
+        torch.autograd.grad(make_loss_fn(model, run)(batch), leaves,
+                            materialize_grads=True)))
+    bk, wk = grads["layers/0/attn/bk"], grads["layers/0/attn/wk"]
+    assert float(bk.abs().max()) < 1e-8 < 1e-3 < float(wk.abs().max())
+
+    def first_step(g):
+        p = torch.zeros_like(g)
+        state = TrainState.init([p], AdamWConfig())
+        adamw_update(state["params"], [g], state["opt"], 3e-4,
+                     AdamWConfig())
+        return p
+
+    noisy = bk + 1e-9
+    assert float((noisy - bk).abs().max()) < 1e-5 + 1e-4 * 1e-8
+    moved = (first_step(noisy) - first_step(bk)).abs()
+    assert float(moved.max()) > 1e-5
+    updates = chip_smoke._Updates()
+    updates.calls.append(([bk], torch.tensor(3e-4), AdamWConfig(), 0.0))
+    slack, = updates.slack(1e-5, 1e-4)
+    assert np.all(moved.double().numpy() <= 1e-5 + slack)
+
+
+@pytest.mark.parametrize("clip", [0.0, 1.0])
+def test_adamw_slack_bounds_every_gradient_inside_the_bars(clip):
+    """``_Updates.slack`` over three AdamW steps: gradients moved
+    anywhere inside their bars (``1e-5 + 1e-4 * max|g|``, both ends and
+    between) move no element whose gradient lies within its bar of 0 by
+    more than its slack; an element further from 0 gets none."""
+    from repro_torch.train import AdamWConfig, TrainState
+    from repro_torch.train.optimizer import adamw_update
+    gen = np.random.default_rng(4)
+    shape = (4, 256)
+    # each row a scale of gradients: ~0, about the bar, well above it
+    scales = np.array([1e-9, 1e-6, 1e-5, 1e-1])[:, None]
+    grads = [torch.from_numpy((gen.standard_normal(shape) * scales)
+                              .astype(np.float32)) for _ in range(3)]
+    lrs = [3e-4, 2.9e-4, 2.8e-4]
+    cfg = AdamWConfig()
+
+    def run(gs):
+        state = TrainState.init([torch.zeros(shape)], cfg)
+        for g, lr in zip(gs, lrs):
+            state["params"], state["opt"] = adamw_update(
+                state["params"], [g], state["opt"], torch.tensor(lr), cfg,
+                grad_clip=clip)
+        return state["params"][0].double().numpy()
+
+    updates = chip_smoke._Updates()
+    updates.calls = [([g], torch.tensor(lr), cfg, clip)
+                     for g, lr in zip(grads, lrs)]
+    slack, = updates.slack(1e-5, 1e-4)
+    near = np.zeros(shape, bool)
+    for g in grads:
+        near |= g.abs().numpy() <= 1e-5 + 1e-4 * float(g.abs().max())
+    assert near[:2].all() and near[3].mean() < 0.01
+    # ~0 gradients: their moves' signs are the bar's to decide, up to
+    # 2 lr a step
+    assert (slack[~near] == 0).all() and slack[:2].min() > 1e-4
+    assert slack.max() <= 2 * 1.5 * sum(lrs)
+    base = run(grads)
+    for trial in range(8):
+        moved = []
+        for g in grads:
+            bar = 1e-5 + 1e-4 * float(g.abs().max())
+            # every step at one end of the bar, each at a random end, or
+            # anywhere between
+            u = (np.full(shape, 1.0 - 2 * trial) if trial < 2
+                 else np.sign(gen.standard_normal(shape)) if trial < 4
+                 else gen.uniform(-1, 1, shape))
+            moved.append(g + torch.from_numpy((0.99 * bar * u)
+                                              .astype(np.float32)))
+        err = np.abs(run(moved) - base)
+        assert np.all(err[near] <= slack[near] * (1 + 1e-4) + 1e-9), trial
+
+
+def test_train_parity_catches_a_wrong_late_gradient(monkeypatch):
+    """A gradient that goes wrong on a small leaf in the last step only
+    (the final norm's, sign flipped on the second run's side) leaves
+    every loss, grad norm and first-step gradient inside its bar: the
+    parameters, held to the CPU's own run, fail."""
+    from repro_torch.train import step as step_mod
+    real = step_mod.adamw_update
+    calls = []
+
+    def flipped(params, grads, state, lr, cfg, grad_clip=0.0):
+        calls.append(None)
+        if len(calls) == 6:                 # the second run's third step
+            grads = list(grads)
+            grads[1] = -grads[1]            # final_norm/scale
+        return real(params, grads, state, lr, cfg, grad_clip=grad_clip)
+
+    monkeypatch.setattr(step_mod, "adamw_update", flipped)
+    cfg = reduced_config(get_arch("granite-3-2b"))
+    with pytest.raises(RuntimeError, match=r"final_norm/scale after 3 "
+                                           r"steps off the CPU's"):
+        chip_smoke._train_parity(CPU, cfg)
+
+
+def test_dispatch_difference_names_token_experts_and_margin():
+    """Two recorded runs whose routers part on one token: the report
+    names the call, the batch row, the token, both runs' experts and the
+    router's margin there."""
+    cfg = reduced_config(get_arch("moonshot-v1-16b-a3b"))
+    from repro_torch.models.lm import build_model
+    model = build_model(cfg, device=CPU, dtype=torch.float32)
+    model.init(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(chip_smoke.rng(0).integers(
+        0, cfg.vocab_size, size=(2, 8)))
+    runs = []
+    for nudge in (0.0, 1.0):
+        with torch.no_grad():
+            model.layers[1].moe["router"][:, 0] += nudge
+        with torch.inference_mode(), \
+                chip_smoke._Dispatches(keep_states=True) as disp:
+            model.forward({"tokens": tokens})
+        runs.append(disp)
+    assert runs[0].difference(runs[0]) is None
+    diff = runs[0].difference(runs[1])
+    assert diff["call"] == 1 and 0 <= diff["group"] < 2
+    assert 0 <= diff["token"] < 8
+    mine, theirs = diff["experts"]
+    assert mine != theirs and len(mine) == cfg.moe.top_k
+    assert diff["router_margin"] >= 0.0
+
+
+def test_family_train_phases_on_cpu():
+    """The families' training phases at the reduced configs: K2 with its
+    gradient at each family's head shape (hubert bidirectional, MLA's v
+    padded, the hybrid's and danube's windows), then the four families
+    trained through ``_train_full`` (per-step ms, the update's split,
+    attention blocks: none for mamba2); the summary and the kernel line
+    take their rows. On the CPU nothing launches."""
+    models = dict(zip(("read", "write"), default_models()))
+    fam = chip_smoke.family_train_phases(
+        CPU, lambda name: reduced_config(get_arch(name)), models, batch=2,
+        seq=16, steps=2)
+    assert list(fam) == ["fa_train_hubert", "fa_train_moonshot",
+                         "fa_train_mla", "fa_train_rg", "fa_train_danube"] \
+        + [f"train_{n}" for n in chip_smoke.FULL_TRAIN_ARCHS]
+    assert fam["fa_train_hubert"]["causal"] is False
+    assert fam["fa_train_mla"]["shape"][-1] == 24
+    assert fam["fa_train_mla"]["v_dim"] == 16
+    assert fam["fa_train_rg"]["window"] == 8
+    assert fam["fa_train_danube"]["window"] == 128
+    for name in ("hubert", "moonshot", "mla", "rg", "danube"):
+        r = fam[f"fa_train_{name}"]
+        assert r["phase"] == "flash_attention_train"
+        assert r["max_abs_err"] == 0.0 and r["grad_max_abs_err"] == 0.0
+        assert r["padded_columns_zero"] and r["bound_ms"] > 0.0
+        assert r["launches"] == {"tensor_core": 0, "simt": 0}
+        assert r["library_ms"] > 0.0 and r["phase_s"] > 0.0
+    blocks = {"mamba2-370m": 0, "recurrentgemma-2b": 0, "paligemma-3b": 2,
+              "hubert-xlarge": 2}
+    full = []
+    for name in chip_smoke.FULL_TRAIN_ARCHS:
+        r = fam[f"train_{name}"]
+        assert r["phase"] == "lm_train_full"
+        assert r["attention_blocks"] == blocks[name]
+        assert r["steps"] == len(r["losses"]) == 2
+        assert 0.0 < r["adamw_ms"] < r["ms_per_step"]
+        assert set(r["launches"].values()) == {0}
+        assert r["flash_attention_backward_op_calls"] == 0
+        full.append(r)
+    parity = [chip_smoke._train_parity(CPU, c)
+              for c in chip_smoke.parity_configs()[2:4]]
+    summary = chip_smoke.summary_line(["card, 700 W"], [], parity, full)
+    assert list(summary["lm_train_parity"]) == [r["arch"] for r in parity]
+    for row in summary["lm_train_parity"].values():
+        assert row["loss_over_bar"] <= 1.0 and row["grad_over_bar"] <= 1.0
+        assert row["backward_op_calls"] == 0
+    assert set(summary["lm_train_full"]) == {r["arch"] for r in full}
+    line = chip_smoke.kernel_line(
+        {name: fam["fa_train_mla"] for name in chip_smoke.KERNELS},
+        {name: 0 for name in chip_smoke.KERNELS})
+    assert all(set(row) == KEYS for row in line["kernels"])
+
+
+@pytest.mark.parametrize("name,depth", [("granite-3-2b", None),
+                                        ("recurrentgemma-2b", 3)])
+def test_lm_serve_tail_replay_on_cpu(name, depth):
+    """``phase_lm_serve``'s traced tail: its last 8 steps (two prompt
+    steps, then six fed back from their argmax) run again from the state
+    set aside in (b), copied back into the same buffers: the same tokens
+    and logits as (b), every cache address kept; for the hybrid its
+    RG-LRU states and its local attention's 8-slot ring buffer, wrapped
+    past 8 positions."""
+    import dataclasses
+    cfg = reduced_config(get_arch(name))
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, n_layers=depth)
+    out = chip_smoke.phase_lm_serve(
+        CPU, cfg, prefill_batch=2, prefill_len=16, n_requests=3, prompt0=4,
+        prompt_step=3, max_new=6, cache_len=32, profile_steps=8, seed=7)
+    gen, prof = out["generate"], out["profiled"]
+    assert gen["decode_steps"] == 16 and gen["tail_steps"] == 8
+    assert gen["cache_addresses_kept"] and gen["cache_buffers"] > 0
+    assert prof["decode_steps"] == 8
+    assert prof["same_tokens"] and prof["same_logits"]
+    assert prof["cache_addresses_kept"]
+    assert prof["s"] > 0.0 and prof["save_s"] >= 0.0
+
+
+def test_train_float64_dump_on_cpu():
+    """``chip_train_float64.py`` with the CPU on both sides, reduced
+    moonshot at one step: the gates pass, the worst elements are named,
+    and each leaf's float32 gradient lies within a hundredth of its bar
+    of the float64 gradient of the widened path."""
+    import chip_train_float64
+    cfg = reduced_config(get_arch("moonshot-v1-16b-a3b"))
+    out = chip_train_float64.diagnose(CPU, cfg, 1, 32, 4, (2, 3), 3)
+    assert json.loads(json.dumps(out)) == out
+    assert out["gates_passed"] and out["failed"] is None
+    assert out["param_worst"]["err_over_bound"] <= 1.0
+    assert len(out["worst_elements"]) == 3
+    for row in out["worst_elements"]:
+        assert row["param_abs_err"] <= 1e-5
+        assert row["leaf_cpu_vs_float64"] <= row["leaf_grad_bar"] / 100
+        assert row["grad_card"] == pytest.approx(row["grad_float64"],
+                                                 abs=row["leaf_grad_bar"])
+
+
+def test_train_parity_gates_every_steps_gradients(monkeypatch):
+    """A gradient that goes wrong in the last step only (a query weight's,
+    sign flipped on the second model's side: the grad norm, every loss
+    and the first step's gradients stay as they were) fails the gate on
+    the gradients each step hands AdamW."""
+    from repro_torch.models import lm
+    from repro_torch.utils.tree import tree_flatten_with_paths
+    real = lm.build_model
+    built = []
+
+    def build(*args, **kwargs):
+        model = real(*args, **kwargs)
+        built.append(model)
+        if len(built) == 2:
+            wq = dict(tree_flatten_with_paths(
+                model.param_tree()))["layers/0/attn/wq"]
+            seen = []
+
+            def flip(g):                # the first step's gradient, then
+                seen.append(None)       # steps 1-3: the third step's
+                return -g if len(seen) == 4 else g
+
+            wq.requires_grad_(True)
+            wq.register_hook(flip)
+        return model
+
+    monkeypatch.setattr(lm, "build_model", build)
+    cfg = reduced_config(get_arch("granite-3-2b"))
+    with pytest.raises(RuntimeError, match=r"step 3's gradient of "
+                                           r"layers/0/attn/wq off"):
+        chip_smoke._train_parity(CPU, cfg)
+
+
+def test_lm_serve_tail_replay_of_every_step_on_cpu():
+    """A tail as long as the run: the state is saved before the first
+    step (an empty cache, no logits, no outputs) and the replay of all
+    16 steps gives (b)'s tokens and logits in the same buffers."""
+    cfg = reduced_config(get_arch("granite-3-2b"))
+    out = chip_smoke.phase_lm_serve(
+        CPU, cfg, prefill_batch=2, prefill_len=16, n_requests=3, prompt0=4,
+        prompt_step=3, max_new=6, cache_len=32, profile_steps=16, seed=7)
+    gen, prof = out["generate"], out["profiled"]
+    assert gen["decode_steps"] == gen["tail_steps"] == 16
+    assert prof["decode_steps"] == 16
+    assert prof["same_tokens"] and prof["same_logits"]
+    assert gen["cache_addresses_kept"] and prof["cache_addresses_kept"]
