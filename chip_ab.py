@@ -24,19 +24,20 @@ def main(script: str, doc: str, measure: Callable[[Path], Dict],
          check: Optional[Callable[[List[Dict]], Dict]] = None) -> int:
     """Run the A/B of ``script`` (its ``__file__``) from ``sys.argv``:
     ``DIR`` (the baseline tree) drives the turns, ``--measure TREE`` is
-    one turn. ``check`` sees every turn; it returns the fields it adds to
+    one turn; either fails without a CUDA device. ``check`` sees every turn; it returns the fields it adds to
     the last line, or raises ``RuntimeError`` to fail the run."""
     name = Path(script).stem
-    if len(sys.argv) == 3 and sys.argv[1] == "--measure":
-        print(json.dumps(measure(Path(sys.argv[2]))), flush=True)
-        return 0
-    if len(sys.argv) != 2:
+    measuring = len(sys.argv) == 3 and sys.argv[1] == "--measure"
+    if not measuring and len(sys.argv) != 2:
         print(doc, file=sys.stderr)
         return 2
     import torch
     if not torch.cuda.is_available():
         print(f"{name}: no CUDA device", file=sys.stderr)
         return 1
+    if measuring:
+        print(json.dumps(measure(Path(sys.argv[2]))), flush=True)
+        return 0
     base = Path(sys.argv[1]).resolve()
     turns = []
     for label, tree in (("baseline", base), ("this", ROOT), ("this", ROOT),

@@ -644,11 +644,11 @@ def _device_busy_ms(fn: Callable[[], object], dev, top: int = 0,
     ``top``, the ``top`` device-side entries with the most time (name,
     device ms, count); and for each name in ``kernels`` the device ms
     and launches of the CUDA kernel ``<name>_kernel``."""
-    t0 = time.perf_counter()
-    with _profiler() as prof:
+    with _traced(dev) as prof:
+        t0 = time.perf_counter()
         fn()
         sync(dev)
-    wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0
     trace = _Trace.of(prof)
     busy_ms, heaviest = trace.device(top)
     by_kernel = {name: trace.kernel_ms(rf"\b{name}_kernel\b")
@@ -659,6 +659,25 @@ def _device_busy_ms(fn: Callable[[], object], dev, top: int = 0,
 def _profiler():
     from torch.profiler import ProfilerActivity, profile
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+# host seconds of quiet before and after the work of a profiled window
+# on the card: traces have left out the last launches of windows that
+# closed as their work ended (PERF.md §7)
+TRACE_PAD_S = (0.01, 0.1)
+
+
+@contextlib.contextmanager
+def _traced(dev):
+    """A profiled window (``_profiler``) around the block's work; on the
+    card it opens ``TRACE_PAD_S[0]`` s before the work and closes
+    ``TRACE_PAD_S[1]`` s after the device has finished it."""
+    pad = TRACE_PAD_S if dev.type == "cuda" else (0.0, 0.0)
+    with _profiler() as prof:
+        time.sleep(pad[0])
+        yield prof
+        sync(dev)
+        time.sleep(pad[1])
 
 
 # the Chrome trace's categories of device work (kernels, copies,
@@ -1388,12 +1407,16 @@ def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int,
                            path_s: int, path_len: int, s: int, step: int,
                            seed: int, reps: int) -> Dict:
     """``decode_attention`` against its plain version, bfloat16 and
-    float32, at granite's decode heads in two cases, each timed in
-    bfloat16 with its bound, the plain version's and SDPA's (with a
-    length mask) time and its cache splits: the path's shape, a
-    ``path_s``-position cache with every length ``path_len`` (the
-    top-level numbers), and a long cache of ``s`` positions with ragged
-    lengths ``s - step * i``."""
+    float32, at one decode shape in two cases, each timed in bfloat16
+    with its bound, the plain version's and SDPA's (with a length mask)
+    time, its splits, the blocks of its split kernel with keys to read,
+    the split kernel each call took (``variants``: on the card bfloat16
+    takes the tensor-core one, float32 the SIMT one) and, on the card,
+    each of the call's two kernels timed alone by graph replay
+    (``kernel_ms``; the split then the combine alone give the call's
+    output bit for bit): the path's shape, a ``path_s``-position cache
+    with every length ``path_len`` (the top-level numbers), and a long
+    cache of ``s`` positions with ragged lengths ``s - step * i``."""
     import torch
     from repro_torch.kernels.decode_attention import kernel as dec
     from repro_torch.kernels.decode_attention.kernel import decode_attention
@@ -1405,6 +1428,7 @@ def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int,
     def case(cache: int, lengths: List[int]) -> Dict:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         close = {}
+        before = dict(dec.variants)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _randn(g, dev, dtype, (b, hq, d), (b, hkv, cache, d),
                              (b, hkv, cache, d))
@@ -1412,6 +1436,12 @@ def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int,
                 f"decode_attention S={cache}",
                 decode_attention(q, k, v, lens),
                 decode_attention_ref(q, k, v, lens))
+        variants = {n: dec.variants[n] - before[n] for n in dec.variants}
+        if dev.type == "cuda":
+            gate(variants == {"tensor_core": 1, "simt": 1},
+                 f"decode_attention S={cache}: bfloat16 and float32 took "
+                 f"{variants}, not one call each of the tensor-core and "
+                 f"the SIMT kernel")
         # a few microseconds of device time: the kernel and SDPA are timed
         # by graph replay (the wrappers' host work per call, which an
         # event-timed loop would measure instead, is call_ms)
@@ -1424,13 +1454,33 @@ def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int,
         library_ms, library_note = _library_ms(dev, reps, q[:, :, None], k,
                                                v, timer=graph_ms,
                                                attn_mask=mask)
+        tc = dec.takes_tensor_cores(q, k, v)
+        kernel_ms = {}
+        if dev.type == "cuda":
+            # each kernel alone, by graph replay: the split over the
+            # workspace, the combine over the partials the split left
+            _, ws = dec.launch_parts(q, k, v, lens, dec.SPLIT)
+            parts_out = dec.launch_parts(q, k, v, lens, dec.COMBINE, ws)[0]
+            gate(torch.equal(parts_out, decode_attention(q, k, v, lens)),
+                 f"decode_attention S={cache}: the split and the combine "
+                 f"launched apart gave another output than the call")
+            split = "decode_split_tc" if tc else "decode_split_simt"
+            kernel_ms = {
+                split: graph_ms(lambda: dec.launch_parts(
+                    q, k, v, lens, dec.SPLIT, ws), dev, reps),
+                "decode_combine": graph_ms(lambda: dec.launch_parts(
+                    q, k, v, lens, dec.COMBINE, ws), dev, reps)}
+        splits = dec.decode_splits(b, hkv, hq // hkv, cache, d, sms, tc)
         valid = sum(lengths)
         b_dec = bound(2 * hkv * d * valid * 2 + 2 * 2 * q.numel() + 4 * b,
                       4 * d * hq * valid, H100_BF16_OPS_PER_S)
         return {"cache": cache, "lengths": lengths, "dtype": "bfloat16",
                 **close["bfloat16"], "float32": close["float32"],
-                "splits": dec.decode_splits(b, hkv, hq // hkv, cache, sms),
+                "variants": variants, "splits": splits,
+                "blocks_with_work": dec.blocks_with_work(
+                    lengths, hkv, hq // hkv, splits, tc),
                 "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                "kernel_ms": kernel_ms,
                 "library_ms": library_ms,
                 "library": f"scaled_dot_product_attention with a length "
                            f"mask ({library_note})", **b_dec}
@@ -1772,6 +1822,7 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
     t1 = time.perf_counter()
     gen_s, tail_s = t1 - t0 - tail["save_s"], t1 - tail["t0"]
     launches_b = _attn_launches()
+    variants_b = dict(_attn_kernels()[1].variants)
     cache_kept = addresses[1]
     gate(cache_kept, "a decode step moved a cache buffer to a new address")
     gate(all(len(q.out_tokens) == max_new
@@ -1791,6 +1842,10 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
         gate(launches_b == {"flash_attention": 0, "flash_attention_tc": 0,
                             "decode_attention": per_step * steps},
              f"generate attention launches {launches_b}")
+        # a bfloat16 model over a bfloat16 cache: every decode_attention
+        # call on the tensor-core split kernel
+        gate(variants_b == {"tensor_core": per_step * steps, "simt": 0},
+             f"generate decode_attention split kernels {variants_b}")
     gen = out["generate"] = {
         "requests": n_requests,
         "prompt_lens": [len(q.prompt) for q in reqs],
@@ -1800,7 +1855,7 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
         "generated_tokens_per_s": n_requests * max_new / gen_s,
         "tail_steps": profile_steps,
         "tail_ms_per_step": tail_s * 1e3 / profile_steps,
-        "launches": launches_b,
+        "launches": launches_b, "decode_variants": variants_b,
         "cache_buffers": len(addresses[0]),
         "cache_addresses_kept": cache_kept,
         "peak_device_bytes": (max(tail["peak_before"],
@@ -1833,11 +1888,11 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
 
     model.decode_step = recorded
     with torch.inference_mode():
-        t0 = time.perf_counter()
-        with (_profiler() if cuda else contextlib.nullcontext()) as prof:
+        with (_traced(dev) if cuda else contextlib.nullcontext()) as prof:
+            t0 = time.perf_counter()
             replay_kept = replay()
             sync(dev)
-        t1 = time.perf_counter()
+            t1 = time.perf_counter()
         same_tokens = (len(again) == profile_steps
                        and all(torch.equal(a.argmax(-1), b.argmax(-1))
                                for a, b in zip(again, tail["logits"]))
@@ -1858,8 +1913,19 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
         "wall_ms_per_step": (t1 - t0) * 1e3 / profile_steps}
     del tail, again
     if cuda:
-        busy_ms, heaviest = _Trace.of(prof).device(top=12)
+        trace = _Trace.of(prof)
+        busy_ms, heaviest = trace.device(top=12)
+        # the trace holds every launch of K3's two kernels in the replayed
+        # steps, or its device time would leave some out
+        made = per_step * profile_steps
+        held = {name: trace.kernel_ms(rf"\b{name}_kernel\b")[1]
+                for name in ("decode_split_tc", "decode_combine")}
+        gate(held == {name: made for name in held},
+             f"the traced steps hold {held} launches of decode_attention's "
+             f"kernels, not {made} each")
         prof_out.update({
+            "decode_attention_traced": {name: [n, made]
+                                        for name, n in held.items()},
             "trace_processing_s": time.perf_counter() - t1,
             "device_busy_ms_per_step": (None if busy_ms is None
                                         else busy_ms / profile_steps),
@@ -2641,11 +2707,11 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
     # one more step under the profiler: the AdamW update's range gives
     # the split of a step (on the card, the range's span on the device:
     # its kernels and the gaps between them; on the CPU, its host time)
-    t0 = time.perf_counter()
-    with _profiler() as prof:
+    with _traced(dev) as prof:
+        t0 = time.perf_counter()
         state, _ = step_fn(state, batches[steps + 1])
         sync(dev)
-    traced_s = time.perf_counter() - t0
+        traced_s = time.perf_counter() - t0
     trace = _Trace.of(prof)
     adamw_ms = trace.range_ms(UPDATE_RANGE, cuda)
     gate(adamw_ms["calls"] == 1 and adamw_ms["span"] > 0.0,

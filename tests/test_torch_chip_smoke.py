@@ -45,11 +45,20 @@ def test_kernel_phases_on_cpu():
     # the path's shape at the top level, the long ragged cache beside it
     assert dec["shape"] == [3, 8, 2, 64, 16] and dec["cache"] == 64
     assert dec["lengths"] == [40, 40, 40] and dec["max_abs_err"] == 0.0
-    assert dec["splits"] == 1 and dec["library_ms"] > 0.0
+    # the tensor-core kernel's splits (bfloat16 is timed): a 64-position
+    # cache in splits of at least 32, every one with keys at lengths 40
+    assert dec["splits"] == 2 and dec["library_ms"] > 0.0
+    assert dec["blocks_with_work"] == 3 * 2 * 2
     assert dec["call_ms"] > 0.0 and dec["plain_ms"] > 0.0
+    # on the CPU neither split kernel runs, and neither is timed alone
+    assert dec["variants"] == {"tensor_core": 0, "simt": 0}
+    assert dec["kernel_ms"] == {} and "kernel_traced" not in dec
     long = dec["long_cache"]
     assert long["lengths"] == [128, 91, 54] and long["max_abs_err"] == 0.0
-    assert long["float32"]["max_abs_err"] == 0.0 and long["splits"] == 1
+    assert long["float32"]["max_abs_err"] == 0.0 and long["splits"] == 4
+    # splits with keys: 4 of 128 (runs of 32), 3 of 91 (32, 32, 27), 4 of
+    # 54 (runs of 16): 11 a kv head
+    assert long["blocks_with_work"] == 2 * 11
     assert long["bound_ms"] > dec["bound_ms"] > 0.0
     simt = chip_smoke.phase_flash_attention_train(CPU, 2, 4, 2, 16, 32,
                                                   reps=1)
@@ -301,6 +310,8 @@ def test_family_phases_on_cpu(monkeypatch):
         out = fam[f"serve_{name}-smoke"]
         assert out["prefill"]["launches"] == none
         assert out["generate"]["launches"] == none
+        assert out["generate"]["decode_variants"] == {"tensor_core": 0,
+                                                      "simt": 0}
         assert out["generate"]["decode_steps"] == 10 + 3
     assert fam["serve_paligemma-3b-smoke"]["attention_layers"] == 2
     assert fam["encode"]["launches"] == none

@@ -240,22 +240,40 @@ def test_decode_attention_ignores_positions_past_length(dev):
     assert torch.equal(base, pert)
 
 
-def _splits(dev, b, hq, hkv, s):
+def _splits(dev, b, hq, hkv, s, d, tc=True):
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    n = dec_kernel.decode_splits(b, hkv, hq // hkv, s, sms)
-    return n, -(-s // n)
+    return dec_kernel.decode_splits(b, hkv, hq // hkv, s, d, sms, tc)
+
+
+def _boundary_lengths(n, s):
+    """Length 1, S, and lengths on the split rule's boundaries and one
+    either side: n chunks (one chunk a split) and 2n chunks (two)."""
+    c = dec_kernel.CHUNK
+    return [1, n * c - 1, n * c, n * c + 1, 2 * n * c - 1, 2 * n * c,
+            2 * n * c + 1, s]
+
+
+def _call(dev, q, k, v, lengths):
+    """One counted call; returns the output and the split kernel taken."""
+    before = (dec_kernel.launches["decode_attention"],
+              dict(dec_kernel.variants))
+    got = dec_kernel.decode_attention(q, k, v, lengths=lengths)
+    torch.cuda.synchronize(dev)
+    assert dec_kernel.launches["decode_attention"] == before[0] + 1
+    taken = [n for n, c in dec_kernel.variants.items() if c != before[1][n]]
+    assert len(taken) == 1
+    return got, taken[0]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_split_boundaries(dev, dtype):
     """Lengths on a split boundary and one either side of it, length 1
-    and length S, with S not a multiple of the split length."""
-    b, hq, hkv, s, d = 7, 8, 2, 1000, 64
-    n, split = _splits(dev, b, hq, hkv, s)
-    assert n > 1 and s % split != 0
-    lengths = torch.tensor([split - 1, split, split + 1, 1, s,
-                            2 * split + 1, (n - 1) * split],
-                           dtype=torch.int32, device=dev)
+    and length S, with the valid length cut into runs of whole chunks."""
+    b, hq, hkv, s, d = 8, 8, 2, 1000, 64
+    n = _splits(dev, b, hq, hkv, s, d, dtype == torch.bfloat16)
+    assert n > 1
+    lengths = torch.tensor(_boundary_lengths(n, s), dtype=torch.int32,
+                           device=dev)
     q, k, v = _normal(dev, 31, dtype, (b, hq, d), (b, hkv, s, d),
                       (b, hkv, s, d))
     got = dec_kernel.decode_attention(q, k, v, lengths=lengths)
@@ -266,8 +284,10 @@ def test_decode_attention_most_splits(dev):
     """S 8192 at B 1, Hkv 1: the most splits (one block per split)."""
     q, k, v = _normal(dev, 32, torch.bfloat16, (1, 4, 64), (1, 1, 8192, 64),
                       (1, 1, 8192, 64))
-    n, _ = _splits(dev, 1, 4, 1, 8192)
-    assert n == 8192 // dec_kernel.MIN_SPLIT
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rule = dec_kernel.SPLIT_RULES["tensor_core"]
+    assert _splits(dev, 1, 4, 1, 8192, 64) == min(
+        rule["blocks_per_sm"] * sms, 8192 // rule["min_split"])
     for length in (8192, 5001):
         lengths = torch.tensor([length], dtype=torch.int32, device=dev)
         got = dec_kernel.decode_attention(q, k, v, lengths=lengths)
@@ -304,6 +324,168 @@ def test_decode_attention_in_a_cuda_graph(dev):
     fresh = dec_kernel.decode_attention(q, k, v, lengths=lengths)
     assert torch.equal(out, fresh)
     _assert_close(out, decode_attention_ref(q, k, v, lengths=lengths))
+
+
+# the serving paths' decode heads (Hq, Hkv, D): granite-3-2b,
+# moonshot-v1-16b-a3b, internlm2-20b, command-r-plus-104b,
+# recurrentgemma-2b, paligemma-3b
+PATH_SHAPES = [(32, 8, 64), (16, 16, 128), (48, 8, 128), (96, 8, 128),
+               (10, 1, 256), (8, 1, 256)]
+
+
+@pytest.mark.parametrize("hq,hkv,d", PATH_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_path_shapes(dev, dtype, hq, hkv, d):
+    """The six path shapes at batch 3 over a 1024 cache: bfloat16 takes
+    the tensor-core split kernel, float32 the SIMT one."""
+    b, s = 3, 1024
+    q, k, v = _normal(dev, 40 + hq + d, dtype, (b, hq, d), (b, hkv, s, d),
+                      (b, hkv, s, d))
+    lengths = torch.tensor([512, s, 37], dtype=torch.int32, device=dev)
+    got, taken = _call(dev, q, k, v, lengths)
+    assert taken == ("tensor_core" if dtype == torch.bfloat16 else "simt")
+    want = decode_attention_ref(q, k, v, lengths=lengths)
+    assert got.dtype == dtype and got.shape == want.shape
+    _assert_close(got, want)
+
+
+@pytest.mark.parametrize("hq", [10, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_d256_split_boundaries(dev, dtype, hq):
+    """D 256 at recurrentgemma's and paligemma's groups: length 1, S,
+    and lengths on a split boundary and one either side of it."""
+    b, hkv, s, d = 8, 1, 1024, 256
+    n = _splits(dev, b, hq, hkv, s, d, dtype == torch.bfloat16)
+    lengths = torch.tensor(_boundary_lengths(n, s), dtype=torch.int32,
+                           device=dev)
+    q, k, v = _normal(dev, 50 + hq, dtype, (b, hq, d), (b, hkv, s, d),
+                      (b, hkv, s, d))
+    got, _ = _call(dev, q, k, v, lengths)
+    _assert_close(got, decode_attention_ref(q, k, v, lengths=lengths))
+
+
+@pytest.mark.parametrize("view,taken", [
+    ("offset", "simt"),         # rows one element off 16 bytes: scalar loads
+    ("row_stride", "simt"),     # a row stride of D + 1 elements
+    ("transposed", "tensor_core"),   # (B, S, Hkv, D) viewed: aligned
+])
+def test_decode_attention_d256_strided_cache(dev, view, taken):
+    """Strided cache views at D 256 and group 10: rows that are not
+    16-byte aligned take the SIMT kernel's scalar loads."""
+    b, hq, hkv, s, d = 3, 10, 1, 300, 256
+    (q,) = _normal(dev, 60, torch.bfloat16, (b, hq, d))
+    if view == "transposed":
+        big = _normal(dev, 61, torch.bfloat16, (2, b, s, hkv, d))[0]
+        k, v = big[0].transpose(1, 2), big[1].transpose(1, 2)
+    else:
+        big = _normal(dev, 61, torch.bfloat16, (2, b, hkv, s, d + 1))[0]
+        lo = 1 if view == "offset" else 0
+        k, v = big[0, ..., lo:lo + d], big[1, ..., lo:lo + d]
+    lengths = torch.tensor([s, 1, 137], dtype=torch.int32, device=dev)
+    got, got_taken = _call(dev, q, k, v, lengths)
+    assert got_taken == taken
+    _assert_close(got, decode_attention_ref(q, k, v, lengths=lengths))
+
+
+def test_decode_attention_deterministic_at_recurrentgemma(dev):
+    """MQA 10/1 at D 256, batch 8, cache 1024: bit-identical outputs
+    from call to call, with other work on the card between them."""
+    q, k, v = _normal(dev, 62, torch.bfloat16, (8, 10, 256),
+                      (8, 1, 1024, 256), (8, 1, 1024, 256))
+    lengths = torch.tensor([512, 1024, 1, 700, 33, 272, 511, 999],
+                           dtype=torch.int32, device=dev)
+    first, taken = _call(dev, q, k, v, lengths)
+    assert taken == "tensor_core"
+    for _ in range(3):
+        torch.randn((1 << 20,), device=dev).sum()
+        assert torch.equal(first, dec_kernel.decode_attention(
+            q, k, v, lengths=lengths))
+
+
+def test_decode_attention_d256_in_a_cuda_graph(dev):
+    """Group 10 at D 256 captured once and replayed after ``lengths``
+    changes in place (the split bounds come from ``lengths`` on the
+    device): equal to a fresh call and to the plain version."""
+    q, k, v = _normal(dev, 63, torch.bfloat16, (8, 10, 256),
+                      (8, 1, 1024, 256), (8, 1, 1024, 256))
+    lengths = torch.full((8,), 512, dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        dec_kernel.decode_attention(q, k, v, lengths=lengths)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    before = dec_kernel.variants["tensor_core"]
+    with torch.cuda.graph(graph):
+        out = dec_kernel.decode_attention(q, k, v, lengths=lengths)
+    assert dec_kernel.variants["tensor_core"] == before + 1
+    for new in ([1024, 1, 273, 544, 545, 17, 700, 2], [513] * 8):
+        lengths.copy_(torch.tensor(new, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        assert torch.equal(out, dec_kernel.decode_attention(
+            q, k, v, lengths=lengths))
+        _assert_close(out, decode_attention_ref(q, k, v, lengths=lengths))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_length_zero_gives_zeros(dev, dtype):
+    """As the Pallas kernel: a row with length 0 reads nothing and gives
+    zeros (the callers pass lengths >= 1)."""
+    q, k, v = _normal(dev, 64, dtype, (2, 10, 256), (2, 1, 64, 256),
+                      (2, 1, 64, 256))
+    lengths = torch.tensor([0, 64], dtype=torch.int32, device=dev)
+    got, _ = _call(dev, q, k, v, lengths)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    _assert_close(got[1:], decode_attention_ref(q[1:], k[1:], v[1:],
+                                                lengths=lengths[1:]))
+
+
+@pytest.mark.parametrize("hq,hkv,d,dtype", [
+    (10, 1, 256, torch.bfloat16),   # recurrentgemma's heads
+    (12, 1, 128, torch.bfloat16),
+    (32, 8, 64, torch.bfloat16),    # granite's
+    (10, 1, 256, torch.float32),    # the SIMT split
+])
+def test_decode_attention_partials_follow_split_ranges(dev, hq, hkv, d,
+                                                       dtype):
+    """The split kernel alone (``launch_parts``) writes the empty partial
+    (m = -1e30, l = 0) exactly where ``split_ranges`` gives a split no
+    keys, so the host's copy of the rule is the kernel's; the combine
+    alone over those partials gives the call's output bit for bit. The
+    parts count in ``part_launches``, never in ``launches``."""
+    b, s = 6, 1024
+    lengths = [0, 1, 16, 17, 300, s]
+    q, k, v = _normal(dev, 66, dtype, (b, hq, d), (b, hkv, s, d),
+                      (b, hkv, s, d))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    n = _splits(dev, b, hq, hkv, s, d, dtype == torch.bfloat16)
+    before = (dict(dec_kernel.launches), dict(dec_kernel.part_launches))
+    _, ws = dec_kernel.launch_parts(q, k, v, lens, dec_kernel.SPLIT)
+    out, _ = dec_kernel.launch_parts(q, k, v, lens, dec_kernel.COMBINE, ws)
+    torch.cuda.synchronize(dev)
+    assert dec_kernel.launches == before[0]
+    assert dec_kernel.part_launches == {
+        name: count + 1 for name, count in before[1].items()}
+    ml = ws[:b * hq * n * 2].view(b, hq, n, 2).cpu()
+    for row, length in enumerate(lengths):
+        empty = torch.tensor([lo == hi for lo, hi
+                              in dec_kernel.split_ranges(length, n)])
+        assert torch.equal(ml[row, :, :, 0] == -1e30, empty.expand(hq, n))
+        assert torch.equal(ml[row, :, :, 1] > 0, ~empty.expand(hq, n))
+    assert torch.equal(out, dec_kernel.decode_attention(q, k, v,
+                                                        lengths=lens))
+
+
+def test_decode_attention_split_rule_holds_on_this_card(dev):
+    """Every tensor-core instance holds on an SM at once the blocks the
+    split rule gives it (capped at ``blocks_per_sm``), as the bind
+    checks."""
+    lib = dec_kernel.LIBRARY.get()
+    cap = dec_kernel.SPLIT_RULES["tensor_core"]["blocks_per_sm"]
+    for d, group in dec_kernel.TC_INSTANCES:
+        held = lib.decode_attention_tc_blocks_per_sm(d, group)
+        assert held >= 1 and min(held, cap) == dec_kernel.tc_blocks_per_sm(d)
 
 
 def test_wrappers_raise_on_what_the_kernels_do_not_take(dev):
