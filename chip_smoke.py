@@ -59,7 +59,7 @@ paths:
 * the SSM, hybrid, VLM and audio families: flash attention at
   recurrentgemma-2b's local attention (MQA 10/1, D 256, window 2048, at
   S 2048 and 4096), paligemma-3b's MQA (8/1, D 256), hubert-xlarge's
-  bidirectional MHA (D 80) and in float32 at D 256 (the SIMT kernel),
+  bidirectional MHA (D 80) and in float32 at D 256 (split TF32),
   decode attention at D 256 with groups of 10 and 8; mamba2-370m,
   recurrentgemma-2b and paligemma-3b in float32 at full width and depth,
   forward against decode, and the four reduced archs on the card
@@ -76,13 +76,13 @@ Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
 launches (the GBDT kernels': the ``carat`` run's, both sharded CARAT
 runs' and the first process run's, its workers' ``gbdt_logits`` calls
-included, and the training pipelines'; flash attention's two kernels
-as two rows: the tensor-core kernel's in the prefills (granite's, the
-MoE family's, the hybrid's, the VLM's and the two large dense archs')
-and hubert's encode, the SIMT kernel's in the float32 training steps,
-each beside its own timing at granite's shapes; decode attention's in
-granite's, moonshot's, the hybrid's, the VLM's and the two large dense
-archs' generate) and times, and the last line is
+included, and the training pipelines'; flash attention's two
+tensor-core kernels as two rows: the bfloat16 one's in the prefills
+(granite's, the MoE family's, the hybrid's, the VLM's and the two large
+dense archs') and hubert's encode, the split-TF32 one's in the float32
+training steps, each beside its own timing at granite's shapes; decode
+attention's in granite's, moonshot's, the hybrid's, the VLM's and the
+two large dense archs' generate) and times, and the last line is
 ``{"ok": true, "device": {...}}``.
 
 Usage (one CUDA device; imports nothing of JAX or of ``repro``)::
@@ -119,15 +119,21 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BYTES_PER_S = 3.35e12
 H100_F32_OPS_PER_S = 67e12
 H100_BF16_OPS_PER_S = 989e12
+# dense TF32 tensor-core rate: float32-accurate products take three
+# (split TF32, flash_attention_f32tc_kernel)
+H100_TF32_OPS_PER_S = 495e12
 # the H100 SXM's boost clock and SMs (data sheet); an SM's L1/shared
 # memory serves one 128-byte wavefront per clock
 H100_SM_CLOCK_HZ = 1.98e9
 H100_SMS = 132
 
-# every CUDA kernel of the port: its source and the Pallas kernel it
-# replaces (file:line of the kernel function). K2's source holds two
-# kernels: "flash_attention" is the bfloat16 tensor-core one (the
-# serving prefill), "flash_attention_simt" the float32 one (training)
+# every CUDA kernel of the port's paths: its source and the Pallas kernel
+# it replaces (file:line of the kernel function). K2's source holds three
+# kernels: "flash_attention" is the bfloat16 wgmma one (the serving
+# prefill), "flash_attention_f32tc" the float32 split-TF32 one (every
+# training step); its SIMT kernel takes only operands no path gives it
+# (other head dims, misaligned views) and is held to its plain version
+# in lm_train (d) (``qkv_grad_simt``)
 _GBDT_CU = "src/repro_torch/kernels/gbdt_infer/csrc/gbdt_infer.cu"
 _GBDT_PALLAS = "src/repro/kernels/gbdt_infer/kernel.py:35"
 _FA_CU = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
@@ -136,7 +142,7 @@ KERNELS = {
     "gbdt_logits": (_GBDT_CU, _GBDT_PALLAS),
     "gbdt_grid_logits": (_GBDT_CU, _GBDT_PALLAS),
     "flash_attention": (_FA_CU, _FA_PALLAS),
-    "flash_attention_simt": (_FA_CU, _FA_PALLAS),
+    "flash_attention_f32tc": (_FA_CU, _FA_PALLAS),
     "decode_attention": (
         "src/repro_torch/kernels/decode_attention/csrc/decode_attention.cu",
         "src/repro/kernels/decode_attention/kernel.py:31"),
@@ -327,9 +333,12 @@ def phase_build() -> Dict:
                 **_ptxas_summary(report),
                 "tensor_core_instructions": sass_tensor_core_counts(path),
                 # each panel count of K2's tensor-core kernel (ILi<NP>E:
-                # NP 64-column panels; NP 4 is D 256)
+                # NP 64-column panels; NP 4 is D 256) and each head-dim
+                # instance of its split-TF32 kernel (ILi<NT>E: D = 8 NT)
                 "flash_attention_tc_kernel": ptxas_entries(
-                    report, "flash_attention_tc_kernel")}
+                    report, "flash_attention_tc_kernel"),
+                "flash_attention_f32tc_kernel": ptxas_entries(
+                    report, "flash_attention_f32tc_kernel")}
 
     t0 = time.perf_counter()
     libs = _libraries()
@@ -1310,6 +1319,25 @@ def _attn_pairs(sq: int, sk: int, causal: bool, window: int) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
+def _k2_launches(before: Dict[str, int]) -> Dict[str, int]:
+    """K2's launches since ``before`` (a copy of its counters) by kernel:
+    the bfloat16 ``wgmma`` one (``tensor_core``), the float32 split-TF32
+    one (``f32tc``) and the SIMT one."""
+    from repro_torch.kernels.flash_attention import kernel as fa
+    n = {k: fa.launches[k] - before[k] for k in fa.launches}
+    return {"tensor_core": n["flash_attention_tc"],
+            "f32tc": n["flash_attention_f32tc"],
+            "simt": n["flash_attention"] - n["flash_attention_tc"]
+            - n["flash_attention_f32tc"]}
+
+
+def _k2_one(kernel: str) -> Dict[str, int]:
+    """``_k2_launches`` of one launch of ``kernel`` (``which_kernel``'s
+    name: ``tc``, ``f32tc`` or ``simt``)."""
+    return {"tensor_core": int(kernel == "tc"),
+            "f32tc": int(kernel == "f32tc"), "simt": int(kernel == "simt")}
+
+
 def _library_ms(dev, reps: int, q, k, v, timer=time_ms, **kw):
     """One PyTorch call computing the same attention, timed only (by
     ``timer``): ``scaled_dot_product_attention`` with GQA (K/V repeated
@@ -1334,9 +1362,9 @@ def phase_flash_attention(dev, b: int, s: int, hq: int, hkv: int, d: int,
     shape in bfloat16 (causal; timed, with its bound, the plain version's
     and SDPA's time), a float32 case with a ragged tail, and a bfloat16
     sliding window (timed likewise, SDPA with a boolean window mask).
-    Each case reports the launches of each of the two kernels; on the
-    card the bfloat16 cases must take the tensor-core kernel and the
-    float32 one the SIMT kernel."""
+    Each case reports the launches of each of K2's three kernels; on the
+    card the bfloat16 cases must take the ``wgmma`` kernel and the
+    float32 one the split-TF32 kernel."""
     import torch
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.flash_attention.kernel import flash_attention
@@ -1350,14 +1378,9 @@ def phase_flash_attention(dev, b: int, s: int, hq: int, hkv: int, d: int,
         before = dict(fa.launches)
         got = flash_attention(q, k, v, causal=True, window=win)
         sync(dev)
-        tc = fa.launches["flash_attention_tc"] - before["flash_attention_tc"]
-        launches = {"tensor_core": tc,
-                    "simt": fa.launches["flash_attention"]
-                    - before["flash_attention"] - tc}
+        launches = _k2_launches(before)
         if dev.type == "cuda":
-            want = ({"tensor_core": 1, "simt": 0}
-                    if dtype == torch.bfloat16 else
-                    {"tensor_core": 0, "simt": 1})
+            want = _k2_one("tc" if dtype == torch.bfloat16 else "f32tc")
             gate(launches == want, f"flash_attention {dtype} S={sq} "
                                    f"took {launches}, not {want}")
         return (q, k, v), {**_check_close(
@@ -1601,7 +1624,7 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
     the forward's logits at every position against token-by-token
     ``decode_step``, at the reference's ``atol=5e-4`` (a VLM's forward
     with zero patches: its decode embeds text only). Each attention
-    block launches K2's SIMT kernel once and K3 once a token; SSM and
+    block launches K2's split-TF32 kernel once and K3 once a token; SSM and
     RG-LRU blocks launch neither. For an MoE arch
     the forward must drop no assignment (a dropped one would part it
     from decode, whose one token per row always fits). With
@@ -1658,9 +1681,10 @@ def phase_lm_consistency(dev, cfg, batch: int, n_tokens: int,
                               f"MoE assignments")
     gate(worst <= DECODE_ATOL, f"decode differs from forward by {worst}")
     if dev.type == "cuda":
-        # float32: the SIMT kernel of flash_attention
+        # float32: the split-TF32 kernel of flash_attention
         gate(launches == {"flash_attention": n_attn,
                           "flash_attention_tc": 0,
+                          "flash_attention_f32tc": n_attn,
                           "decode_attention": n_attn * n_tokens},
              f"attention launches {launches}")
     out = {"phase": "lm_consistency", "arch": cfg.name,
@@ -1837,9 +1861,11 @@ def phase_lm_serve(dev, cfg, prefill_batch: int, prefill_len: int,
         per_step = 0 if cfg.mla is not None else n_attn
         gate(launches_a == {"flash_attention": n_attn,
                             "flash_attention_tc": n_attn,
+                            "flash_attention_f32tc": 0,
                             "decode_attention": 0},
              f"prefill attention launches {launches_a}")
         gate(launches_b == {"flash_attention": 0, "flash_attention_tc": 0,
+                            "flash_attention_f32tc": 0,
                             "decode_attention": per_step * steps},
              f"generate attention launches {launches_b}")
         # a bfloat16 model over a bfloat16 cache: every decode_attention
@@ -1956,9 +1982,9 @@ def phase_prefill_attention(dev, arch: str, b: int, h: int, s: int, d: int,
     passed explicitly as the MLA model passes it (the kernel's default).
     Where ``v_dim < d`` (MLA) v has ``v_dim`` columns zero-padded to
     ``d``, as ``mla_operands`` builds it, and the output's padded columns
-    must be exactly 0. In bfloat16 the tensor-core kernel must take it
-    (``takes_tensor_cores`` and its launch counter), in float32 the SIMT
-    kernel. Timed by graph replay, with the wrapper's host time per call
+    must be exactly 0. In bfloat16 the ``wgmma`` kernel must take it, in
+    float32 the split-TF32 kernel (``which_kernel`` and the launch
+    counters). Timed by graph replay, with the wrapper's host time per call
     (``call_ms``), the plain version's and SDPA's time (a boolean mask
     for a window) and the bound from the shapes (each (query, key) pair
     the masks keep: 4·d operations at the type's peak rate)."""
@@ -1976,19 +2002,16 @@ def phase_prefill_attention(dev, arch: str, b: int, h: int, s: int, d: int,
     v = F.pad(v, (0, d - v_dim))
     scale = float(d) ** -0.5
     kw = dict(causal=causal, window=window, scale=scale)
-    tc_rule = fa.takes_tensor_cores(q, k, v)
+    kernel = fa.which_kernel(q, k, v)
     before = dict(fa.launches)
     got = flash_attention(q, k, v, **kw)
     sync(dev)
-    tc = fa.launches["flash_attention_tc"] - before["flash_attention_tc"]
-    launches = {"tensor_core": tc, "simt": fa.launches["flash_attention"]
-                - before["flash_attention"] - tc}
+    launches = _k2_launches(before)
     what = f"flash_attention {arch} {dtype} D={d} S={s}"
     if dev.type == "cuda":
-        want = ({"tensor_core": 1, "simt": 0} if dtype == "bfloat16" else
-                {"tensor_core": 0, "simt": 1})
-        gate(tc_rule == (dtype == "bfloat16") and launches == want,
-             f"{what}: takes_tensor_cores {tc_rule}, launches {launches}")
+        want = "tc" if dtype == "bfloat16" else "f32tc"
+        gate(kernel == want and launches == _k2_one(want),
+             f"{what}: which_kernel {kernel}, launches {launches}")
     padded_zero = bool((got[..., v_dim:] == 0).all().item())
     gate(padded_zero, f"{what}: padded v columns gave non-zero output")
     close = _check_close(what, got, flash_attention_ref(q, k, v, **kw))
@@ -2010,24 +2033,25 @@ def phase_prefill_attention(dev, arch: str, b: int, h: int, s: int, d: int,
     return {"phase": "flash_attention", "arch": arch,
             "shape": [b, h, hkv, s, d], "v_dim": v_dim, "dtype": dtype,
             "causal": causal, "window": window, "scale": scale,
-            "takes_tensor_cores": tc_rule, "launches": launches,
+            "kernel": kernel, "launches": launches,
             "padded_columns_zero": padded_zero, **close, "ms": ms,
             "call_ms": call_ms, "plain_ms": plain_ms,
             "library_ms": library_ms,
             "library": "scaled_dot_product_attention ("
                        + ", ".join(n for n in (gqa_note, lib_note) if n)
                        + ")",
+            # float32-accurate work: three TF32 products a multiply-add
             **bound(size * (2 * q.numel() + k.numel() + v.numel()),
-                    4 * d * pairs,
+                    4 * d * pairs * (1 if dtype == "bfloat16" else 3),
                     H100_BF16_OPS_PER_S if dtype == "bfloat16"
-                    else H100_F32_OPS_PER_S)}
+                    else H100_TF32_OPS_PER_S)}
 
 
 def _mla_consistency(dev, cfg, batch: int, n_tokens: int, cache_len: int,
                      seed: int) -> Dict:
     """MLA attention of ``cfg`` alone, float32 weights: the full pass
-    (the flash-attention op at D = qk_head_dim, v padded; the SIMT kernel
-    in float32) at every position against the absorbed decode, one token
+    (the flash-attention op at D = qk_head_dim, v padded; the split-TF32
+    kernel in float32) at every position against the absorbed decode, one token
     at a time against the compressed cache (no kernel)."""
     import torch
     from repro_torch.models import attention as attn
@@ -2057,6 +2081,7 @@ def _mla_consistency(dev, cfg, batch: int, n_tokens: int, cache_len: int,
                                f"{worst}")
     if dev.type == "cuda":
         gate(launches_full == {"flash_attention": 1, "flash_attention_tc": 0,
+                               "flash_attention_f32tc": 1,
                                "decode_attention": 0},
              f"MLA full-pass launches {launches_full}")
         gate(sum(launches_decode.values()) == 0,
@@ -2165,7 +2190,8 @@ def phase_moe_consistency(dev, moonshot, deepseek, depth: int, batch: int,
                           n_tokens: int, cache_len: int, seed: int) -> Dict:
     """The MoE family in float32 (TF32 off): (a) ``moonshot`` at full
     width with its depth cut to ``depth``, forward against token-by-token
-    decode (``phase_lm_consistency``: K2's SIMT kernel once per layer, K3
+    decode (``phase_lm_consistency``: K2's split-TF32 kernel once per
+    layer, K3
     once per layer per token), at a capacity factor under which no
     assignment can be dropped (random weights route most tokens of a
     row alike, past the published capacity of 8: the drops of the
@@ -2285,6 +2311,7 @@ def phase_encode(dev, cfg, batch: int, frames: int, seed: int,
     if dev.type == "cuda":
         gate(launches == {"flash_attention": n_attn * reps,
                           "flash_attention_tc": n_attn * reps,
+                          "flash_attention_f32tc": 0,
                           "decode_attention": 0},
              f"encoder attention launches {launches}")
     return {"phase": "lm_encode", "arch": cfg.name,
@@ -2305,8 +2332,9 @@ def phase_family_consistency(dev, archs, reduced, batch: int,
     """The SSM, hybrid and VLM families in float32 (TF32 off) at full
     width and depth: each of ``archs`` forward against token-by-token
     decode (``phase_lm_consistency``: each attention block one launch of
-    K2's SIMT kernel, at D 256 for the hybrid and the VLM, and K3 once a
-    token), then each of ``reduced`` on the card against the CPU."""
+    K2's split-TF32 kernel, at D 256 for the hybrid and the VLM, and K3
+    once a token), then each of ``reduced`` on the card against the
+    CPU."""
     import torch
     from repro_torch.config import reduced_config
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2343,7 +2371,7 @@ def family_phases(dev, get_arch, profile_steps: int) -> Dict[str, Dict]:
     # K2: the hybrid's local attention (MQA 10/1, D 256, window 2048; at
     # S 4096 the window bites), the VLM's MQA (8/1, D 256; 256 patches +
     # 1792 tokens), hubert's bidirectional MHA (16/16, D 80: two panels,
-    # 48 zero columns), and the SIMT kernel in float32 at D 256
+    # 48 zero columns), and the split-TF32 kernel in float32 at D 256
     hd = rg.resolved_head_dim
     run("fa_rg", phase_prefill_attention, dev, rg.name, 4, rg.n_heads,
         2048, hd, hd, seed=21, reps=10, hkv=rg.n_kv_heads, window=win)
@@ -2563,7 +2591,9 @@ def _train_launcher(dev, steps: int, ckpt_every: int, ckpt_root: str,
                "scorer_calls": _scorer_calls(pipe), "launches": launches}
         if dev.type == "cuda":
             want = {"flash_attention": _attn_blocks(run.model) * steps,
-                    "flash_attention_tc": 0, "decode_attention": 0,
+                    "flash_attention_tc": 0,
+                    "flash_attention_f32tc": _attn_blocks(run.model) * steps,
+                    "decode_attention": 0,
                     "gbdt_logits": _scorer_calls(pipe),
                     "gbdt_grid_logits": 0}
             gate(launches == want, f"launcher (carat={carat}) launches "
@@ -2695,7 +2725,8 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
     blocks = _attn_blocks(model)
     if cuda:
         want = {"flash_attention": blocks * steps,
-                "flash_attention_tc": 0, "decode_attention": 0,
+                "flash_attention_tc": 0,
+                "flash_attention_f32tc": blocks * steps, "decode_attention": 0,
                 "gbdt_logits": _scorer_calls(pipe), "gbdt_grid_logits": 0}
         gate(launches == want, f"{cfg.name} full-width launches "
                                f"{launches}, expected {want}")
@@ -2742,7 +2773,7 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
     if cuda:
         busy_ms, heaviest = trace.device(top=12)
         fa_ms, fa_launches = trace.kernel_ms(
-            r"\bflash_attention(_tc)?_kernel\b")
+            r"\bflash_attention(_tc|_f32tc)?_kernel\b")
         bwd = trace.range_ms(fa_kernel.BACKWARD_RANGE, cuda)
         out["profiled"].update({
             "device_busy_ms": busy_ms,
@@ -2917,8 +2948,8 @@ def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
     step). Every MoE dispatch of both runs (the first step's gradient and
     the steps, recomputes included) with equal integer states (where one
     differs: its token, experts and router margin); on the card, K2 (the
-    SIMT kernel) and its backward op once per attention block (the MTP
-    head's included) per step, and K2 never on the CPU. ``keep``, where
+    split-TF32 kernel) and its backward op once per attention block (the
+    MTP head's included) per step, and K2 never on the CPU. ``keep``, where
     given, receives the runs before any gate is read (the initial
     weights, the batches, the run's config, the paths, each side's first
     gradients, parameters and slack; ``chip_train_float64.py``)."""
@@ -2971,7 +3002,8 @@ def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
                      "params": [p.detach().cpu()
                                 for p in tree_leaves(state["params"])],
                      "k2": k2["flash_attention"],
-                     "k2_tc": k2["flash_attention_tc"], "bwd": bwd,
+                     "k2_tc": k2["flash_attention_tc"],
+                     "k2_f32tc": k2["flash_attention_f32tc"], "bwd": bwd,
                      "dispatches": disp, "updates": updates}
     got, want = out["card"], out["cpu"]
     rel = np.abs(got["metrics"] - want["metrics"]) / np.abs(want["metrics"])
@@ -3061,11 +3093,11 @@ def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
         gate(diff is None, f"{what}: a dispatch state differs from the "
                            f"CPU's: {diff}")
     if dev.type == "cuda":
-        gate(got["k2"] == blocks * steps and got["k2_tc"] == 0
-             and want["k2"] == 0,
-             f"{what}: K2 launches {got['k2']} ({got['k2_tc']} on tensor "
-             f"cores) on the card, {want['k2']} on the CPU, expected "
-             f"{blocks * steps} (0) and 0")
+        gate(got["k2"] == got["k2_f32tc"] == blocks * steps
+             and got["k2_tc"] == 0 and want["k2"] == 0,
+             f"{what}: K2 launches {got['k2']} ({got['k2_f32tc']} split "
+             f"TF32, {got['k2_tc']} bfloat16) on the card, {want['k2']} on "
+             f"the CPU, expected {blocks * steps} (all split TF32) and 0")
         gate(got["bwd"] == blocks * steps, f"{what}: {got['bwd']} calls of "
              f"K2's backward op, expected {blocks * steps}")
     res["s"] = time.perf_counter() - t_run
@@ -3076,8 +3108,9 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
                                 s: int, reps: int, causal: bool = True,
                                 window: int = 0,
                                 v_dim: Optional[int] = None,
-                                arch: Optional[str] = None) -> Dict:
-    """K2 on the training path: float32 (the SIMT kernel), with a
+                                arch: Optional[str] = None,
+                                misaligned: bool = False) -> Dict:
+    """K2 on the training path: float32 (the split-TF32 kernel), with a
     gradient, causal, sliding or bidirectional; where ``v_dim < d``
     (MLA) v has ``v_dim`` columns zero-padded to ``d``, as the model
     pads it, the output's padded columns must be exactly 0 and the
@@ -3086,8 +3119,13 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
     on ``dev``: the backward is the plain version's, so they must be
     equal; the forward within float32's tolerance, and timed (``reps``
     calls) beside its bound, the plain version's and SDPA's (a boolean
-    mask for a window). At granite's shape: the kernel line's
-    ``flash_attention_simt`` row."""
+    mask for a window). The bound is the least time of float32-accurate
+    work: three TF32 products a multiply-add at the TF32 rate, or the
+    bytes (``bound_f32_ms``: the float32 rate outside the tensor cores).
+    With ``misaligned``, q, k, v and the gradient are views one element
+    into rows of ``d + 1``, which the rule sends to the SIMT kernel. At
+    granite's shape: the kernel line's ``flash_attention_f32tc`` row
+    (and, ``misaligned``, the SIMT kernel held to its plain version)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -3102,21 +3140,27 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
                            (b, hkv, s, d), (b, hkv, s, v_dim),
                            (b, hq, s, v_dim))
     v, grad = F.pad(v, (0, d - v_dim)), F.pad(grad, (0, d - v_dim))
+    if misaligned:
+        q, k, v, grad = (F.pad(t, (1, 0))[..., 1:] for t in (q, k, v, grad))
+    kernel = fa.which_kernel(q, k, v)
     grads = {}
     before = dict(fa.launches)
     for name, fn in (("kernel", flash_attention),
                      ("plain", flash_attention_ref)):
-        qkv = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        # leaves of their own; misaligned, the rows' first element
+        # before each view (a clone of a view would be aligned)
+        leaves = [(t._base if misaligned else t).clone().requires_grad_(True)
+                  for t in (q, k, v)]
+        qkv = [t[..., 1:] if misaligned else t for t in leaves]
         o = fn(*qkv, **kw)
-        grads[name] = (o.detach(), torch.autograd.grad(o, qkv, grad))
+        grads[name] = (o.detach(), torch.autograd.grad(o, leaves, grad))
     sync(dev)
-    tc = fa.launches["flash_attention_tc"] - before["flash_attention_tc"]
-    launches = {"tensor_core": tc, "simt": fa.launches["flash_attention"]
-                - before["flash_attention"] - tc}
+    launches = _k2_launches(before)
     what = f"K2 training {arch or ''} D={d} window={window}"
     if dev.type == "cuda":
-        gate(launches == {"tensor_core": 0, "simt": 1},
-             f"{what}: launches {launches}")
+        want = "simt" if misaligned else "f32tc"
+        gate(kernel == want and launches == _k2_one(want),
+             f"{what}: which_kernel {kernel}, launches {launches}")
     fwd_err = _max_err(grads["kernel"][0], grads["plain"][0])
     grad_err = max(_max_err(x, y) for x, y in zip(grads["kernel"][1],
                                                   grads["plain"][1]))
@@ -3137,17 +3181,20 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
         plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), dev,
                            reps)
         library_ms, gqa_note = _library_ms(dev, reps, q, k, v, **lib_kw)
+    pairs = b * hq * _attn_pairs(s, s, causal, window)
+    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     return {"phase": "flash_attention_train", "arch": arch,
             "shape": [b, hq, hkv, s, d], "v_dim": v_dim, "dtype": "float32",
-            "causal": causal, "window": window, "launches": launches,
+            "causal": causal, "window": window, "misaligned": misaligned,
+            "kernel": kernel, "launches": launches,
             "max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
             "padded_columns_zero": padded_zero,
             "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "library": "scaled_dot_product_attention ("
                        + ", ".join(n for n in (gqa_note, lib_note) if n)
                        + ")",
-            **bound(4 * (2 * q.numel() + k.numel() + v.numel()),
-                    4 * d * b * hq * _attn_pairs(s, s, causal, window)),
+            **bound(nbytes, 3 * 4 * d * pairs, H100_TF32_OPS_PER_S),
+            "bound_f32_ms": bound(nbytes, 4 * d * pairs)["bound_ms"],
             "phase_s": time.perf_counter() - t_phase}
 
 
@@ -3182,6 +3229,11 @@ def phase_lm_train(dev, full_cfg, launch_steps: int, ckpt_every: int,
         dev, 8, full_cfg.n_heads, full_cfg.n_kv_heads,
         full_cfg.resolved_head_dim, full_seq, reps=20,
         arch=full_cfg.name)
+    # the same on views one element off 16-byte alignment: the SIMT kernel
+    out["d"]["qkv_grad_simt"] = phase_flash_attention_train(
+        dev, 8, full_cfg.n_heads, full_cfg.n_kv_heads,
+        full_cfg.resolved_head_dim, full_seq, reps=20,
+        arch=full_cfg.name, misaligned=True)
     out["e"] = [_train_parity(dev, cfg) for cfg in parity_configs()]
     return out
 
@@ -3197,7 +3249,8 @@ FULL_TRAIN_ARCHS = ("mamba2-370m", "recurrentgemma-2b", "paligemma-3b",
 def family_train_phases(dev, get_arch, models, batch: int, seq: int,
                         steps: int) -> Dict[str, Dict]:
     """The training path of every family on the card, each phase emitted
-    as it ends with its seconds: K2 with its gradient (float32, SIMT) at
+    as it ends with its seconds: K2 with its gradient (float32, split
+    TF32) at
     each family's full heads, ``batch`` x ``seq``: hubert's (16/16, D 80,
     bidirectional), moonshot's (16/16, D 128), MLA's (128/128, D 192
     with v padded from 128), recurrentgemma's local attention (10/1, D
@@ -3610,12 +3663,12 @@ def main() -> int:
     dense = dense_phases(dev, get_arch, PROFILE_STEPS)
 
     # each kernel's launches summed over the paths that drive it: K1 and
-    # K1b on the CARAT runs and the training pipelines; K2's tensor-core
+    # K1b on the CARAT runs and the training pipelines; K2's wgmma
     # kernel in the bf16 prefills (granite's, the MoE family's, the
     # hybrid's, the VLM's, internlm2's and command-r-plus's) and hubert's
-    # encode, its SIMT kernel in every float32 train step on the card
-    # ((a), (c) of granite and of the four families, the card's side of
-    # (d) and (e); the tensor-core kernel is gated at 0 there), each row
+    # encode, its split-TF32 kernel in every float32 train step on the
+    # card ((a), (c) of granite and of the four families, the card's side
+    # of (d) and (e); the wgmma kernel is gated at 0 there), each row
     # beside its own kernel's timing (granite's shapes); K3 in generate
     # (granite's, moonshot's, the hybrid's, the VLM's and the dense
     # archs'; MLA's decode and mamba2's launch none)
@@ -3625,23 +3678,25 @@ def main() -> int:
             "internlm2-20b", "command-r-plus-104b")]
     emit(summary_line(device["nvidia_smi"], serves, parity_runs,
                       full_runs))
-    emit(kernel_line(
+    line = kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
          "flash_attention": fa,
-         "flash_attention_simt": train["d"]["qkv_grad"],
+         "flash_attention_f32tc": train["d"]["qkv_grad"],
          "decode_attention": dec},
         {name: gbdt_launches[name] + sum(r[name] for r in train_runs)
          for name in gbdt_launches} | {
          "flash_attention": sum(
              r["prefill"]["launches"]["flash_attention_tc"] for r in serves)
          + family["encode"]["launches"]["flash_attention_tc"],
-         "flash_attention_simt": sum(r["flash_attention"]
-                                     - r["flash_attention_tc"]
-                                     for r in train_runs)
+         "flash_attention_f32tc": sum(r["flash_attention_f32tc"]
+                                      for r in train_runs)
          + sum(r["k2_launches_card"] for r in parity_runs),
          "decode_attention": sum(
              r["generate"]["launches"]["decode_attention"]
-             for r in serves)}))
+             for r in serves)})
+    for row in line["kernels"]:
+        gate(row["launches"] > 0, f"{row['name']}: no launch on its path")
+    emit(line)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

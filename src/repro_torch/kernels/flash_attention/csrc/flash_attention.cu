@@ -1,4 +1,5 @@
-// Flash-attention forward on Hopper (sm_90a): the LM stack's prefill.
+// Flash-attention forward on Hopper (sm_90a): the LM stack's prefill and
+// its training forward.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/
 // kernel.py (_fa_kernel, launched by flash_attention_pallas). On the TPU
@@ -24,8 +25,9 @@
 // the arithmetic side of the H100's ridge; the bound is the bf16
 // tensor-core rate (989 TFLOP/s). The float32 rate outside the tensor
 // cores is 67 TFLOP/s, 6.8 % of that, so only the tensor cores can come
-// near the bound. Two kernels, chosen by one rule in the wrapper
-// (kernel.py::takes_tensor_cores), never by a retry:
+// near the bound. Three kernels, chosen by one rule in the wrapper
+// (kernel.py::which_kernel), by type, shape and alignment, never by a
+// retry:
 //
 // * flash_attention_tc_kernel, the tensor-core kernel, takes bfloat16
 //   q, k, v with D a multiple of 16 (up to 256), 16-byte-aligned bases
@@ -54,10 +56,36 @@
 //   Every thread both copies and computes, and a warpgroup waits for its
 //   own products before its softmax (no producer warp, no ping-pong
 //   between warpgroups): PERF.md has its time against the bound.
+// * flash_attention_f32tc_kernel, the split-TF32 kernel, takes float32
+//   q, k, v with D a multiple of 8 (up to 256), 16-byte-aligned bases
+//   and strides that are multiples of 4 elements: every training step.
+//   One TF32 product cannot hold the reference's float32 tolerance of
+//   2e-5: it rounds each operand to 10 mantissa bits (2^-11 of its
+//   size, 2^13 times float32's rounding). Split, it can: each operand is
+//   written as hi + lo, two TF32 numbers (hi = x rounded to TF32 by
+//   integer operations, lo = x - hi, which the tensor cores read as TF32
+//   by dropping its low 13 bits), and a product is lo*hi + hi*lo +
+//   hi*hi, summed in float32 on the tensor cores (mma.sync m16n8k8
+//   .tf32; CUTLASS calls it OpMultiplyAddFastF32, "3xTF32"). The
+//   truncation of lo leaves each operand within 2^-21 of x, and the
+//   dropped lo*lo and the truncation each product within ~2^-20 of
+//   float32's: errors of a float32 FMA chain's order, not of TF32. Both
+//   S = Q K^T and O += P V are split so. Four warps own 16 query rows
+//   each (64 a block) and walk key tiles of 32 (D <= 128) or 16 (D 192,
+//   256) keys in a 2-stage cp.async ring; Q stays in shared memory, rows
+//   padded to 8 NT + 4 floats so that every fragment load is free of
+//   bank conflicts, and operands are split as their fragments are read
+//   (no hi/lo tiles in shared memory: the split is three integer and
+//   float operations a value). P never leaves registers: the
+//   accumulator holds keys 2t and 2t + 1 of each octet where the A
+//   operand wants columns t and t + 4, so column t is read as key 2t and
+//   t + 4 as key 2t + 1, and V's B fragment takes its keys in the same
+//   order. The softmax is float32 with expf, as in the SIMT kernel. What
+//   bounds it: three products per multiply-add over the dense TF32 rate
+//   (495 TFLOP/s), or the bytes at 3.35 TB/s, whichever is larger.
 // * flash_attention_kernel, the SIMT kernel, takes everything else:
-//   float32 (TF32 keeps about 10 mantissa bits and cannot hold the
-//   reference's float32 tolerance of 2e-5), and bfloat16 with a head dim
-//   that is not a multiple of 16 or operands that break 16-byte
+//   bfloat16 with a head dim that is not a multiple of 16, float32 with
+//   one that is not a multiple of 8, and operands that break 16-byte
 //   alignment. 8 warps; warp w owns query rows 8w..8w+7 of a 64-row tile,
 //   lane j owns keys j and j+32 of each 64-key tile, so a row's softmax
 //   is one warp's shuffle reduction. Q is staged once as float32 in
@@ -65,9 +93,9 @@
 //   each V tile as is; the products are float32 FMAs. Any Sq, Sk and
 //   D <= 256.
 //
-// Build without --use_fast_math: the SIMT kernel's expf must be accurate
-// to hold the float32 tolerance of the reference (2e-5). The bfloat16
-// tensor-core kernel takes 2^x from ex2.approx (held to 2e-2).
+// Build without --use_fast_math: the float32 kernels' expf must be
+// accurate to hold the float32 tolerance of the reference (2e-5). The
+// bfloat16 tensor-core kernel takes 2^x from ex2.approx (held to 2e-2).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -730,6 +758,338 @@ cudaError_t launch_np(const FlashArgs& a, int batch, cudaStream_t stream) {
 
 }  // namespace tc
 
+// ---------------------------------- split-TF32 tensor-core kernel (float32)
+namespace tf32 {
+
+constexpr int kStages = 2;  // K/V tiles in the ring
+
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;  // query rows a block: 16 a warp
+
+// NT: 8-column tiles of the head dim (D padded with zeros to 8 NT). Key
+// tiles of 32 keys (D <= 128) or 16 (D 192, 256: 66.5 KB of Q and 33 KB
+// a tile keep two blocks an SM at D 192, one at D 256). A staged row is
+// 8 NT + 4 floats: a stride of 4 mod 8 words makes every fragment load
+// below hit 32 distinct banks and keeps rows 16-byte aligned for
+// cp.async. S takes 32 accumulator registers a thread at every
+// instance: NB x KP independent chains of 4.
+template <int NT>
+struct Geo {
+  static constexpr int kBK = NT <= 16 ? 32 : 16;
+  static constexpr int kNB = kBK / 8;   // 8-key n-tiles of S
+  static constexpr int kKP = 8 / kNB;   // chains of each
+  static constexpr int kLd = 8 * NT + 4;
+  static constexpr int q_floats = kBQ * kLd;
+  static constexpr int tile_floats = kBK * kLd;
+  static constexpr size_t bytes =
+      (q_floats + static_cast<size_t>(kStages) * 2 * tile_floats) *
+      sizeof(float);
+};
+
+// x = hi + lo: hi is x rounded to TF32 (half away from zero: the bits
+// past TF32's 10 mantissa bits rounded off; x is finite here), exact to
+// 2^-11 of x; lo = x - hi is exact in float32, and the tensor cores read
+// it as TF32 by dropping its low 13 bits, which leaves hi + lo within
+// 2^-21 of x. Three integer / float operations; cvt.rna.tf32.f32 costs
+// four (it checks for infinities and NaN).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d (16x8, f32) += a (16x8 TF32, row) * b (8x8 TF32, col)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in split TF32: the two small products, then the large one
+__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4],
+                                     const uint32_t (&bh)[2],
+                                     const uint32_t (&bl)[2]) {
+  mma(d, al, bh);
+  mma(d, ah, bl);
+  mma(d, ah, bh);
+}
+
+// rows [row0, row0 + ROWS) of a (positions, D) float32 operand into a
+// staged tile at dst (row stride Geo<NT>::kLd); rows at or past n_rows and
+// columns past d are zeros
+template <int NT, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          long long row_stride, int row0,
+                                          int n_rows, int d, int tid) {
+  constexpr int kChunks = 2 * NT;  // 16-byte chunks a row
+  constexpr int kLd = Geo<NT>::kLd;
+#pragma unroll
+  for (int i0 = 0; i0 < ROWS * kChunks; i0 += kThreads) {
+    const int i = i0 + tid;
+    if (ROWS * kChunks % kThreads != 0 && i >= ROWS * kChunks) break;
+    const int r = i / kChunks, c = i % kChunks;
+    const bool ok = r < n_rows && c * 4 < d;
+    const float* g =
+        ok ? src + static_cast<long long>(row0 + r) * row_stride + c * 4
+           : src;
+    tc::cp_async16(static_cast<uint32_t>(
+                       __cvta_generic_to_shared(dst + r * kLd + c * 4)),
+                   g, ok);
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kThreads, 2)
+    flash_attention_f32tc_kernel(const FlashArgs a) {
+  using G = Geo<NT>;
+  constexpr int kBK = G::kBK, kNB = G::kNB, kKP = G::kKP, kLd = G::kLd;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;                 // [kBQ][kLd]   query tile
+  float* kv = qs + G::q_floats;     // stage s: K, then V, [kBK][kLd] each
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;          // fragment row (and row + 8)
+  const int t = lane & 3;           // fragment column pair
+  const int b = blockIdx.x / a.hq;
+  const int h = blockIdx.x % a.hq;
+  const int hk = h / (a.hq / a.hkv);
+  // the longest causal tiles first
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+
+  const float* qb = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kb =
+      static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vb =
+      static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  float* ob = static_cast<float*>(a.o) + b * a.o_sb + h * a.o_sh;
+
+  // key tiles some row of the block can see
+  int k_lo = 0;
+  int k_hi = a.sk;
+  if (a.window > 0) k_lo = max(0, q0 - a.window + 1);
+  if (a.causal) k_hi = min(a.sk, q0 + kBQ);
+  k_lo = (k_lo / kBK) * kBK;
+  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
+
+  load_rows<NT, kBQ>(qs, qb, a.q_ss, q0, a.sq - q0, a.d, tid);
+  if (n_tiles > 0) {
+    load_rows<NT, kBK>(kv, kb, a.k_ss, k_lo, a.sk - k_lo, a.d, tid);
+    load_rows<NT, kBK>(kv + G::tile_floats, vb, a.v_ss, k_lo, a.sk - k_lo,
+                       a.d, tid);
+  }
+  tc::cp_async_commit();
+
+  // this warp's rows qw0 .. qw0 + 15; the thread's are row0 and row0 + 8
+  const int qw0 = q0 + 16 * warp;
+  const bool rows_live = qw0 < a.sq;
+  const int row0 = qw0 + g;
+  const float* qw = qs + (16 * warp + g) * kLd + t;
+
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.0f;
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_lo + it * kBK;
+    const float* ks = kv + (it % kStages) * 2 * G::tile_floats;
+    const float* vs = ks + G::tile_floats;
+    if (it + 1 < n_tiles) {
+      float* nk = kv + ((it + 1) % kStages) * 2 * G::tile_floats;
+      load_rows<NT, kBK>(nk, kb, a.k_ss, k0 + kBK, a.sk - k0 - kBK, a.d,
+                         tid);
+      load_rows<NT, kBK>(nk + G::tile_floats, vb, a.v_ss, k0 + kBK,
+                         a.sk - k0 - kBK, a.d, tid);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait_1();  // all but the newest group: tile it (and Q)
+    __syncthreads();
+
+    // the warp skips a tile none of its rows can see
+    const bool live =
+        rows_live && (!a.causal || k0 <= qw0 + 15) &&
+        (a.window <= 0 || k0 + kBK - 1 > qw0 - a.window);
+    if (live) {
+      // S = Q K^T: per 8 columns of D, Q's A fragment and each key
+      // octet's B fragment split in registers, three products each, into
+      // kKP chains per octet (summed after)
+      float acc[kNB][kKP][4];
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+        for (int c = 0; c < kKP; ++c)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[nb][c][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        uint32_t ah[4], al[4];
+        split(qw[8 * kk], ah[0], al[0]);
+        split(qw[8 * kk + 8 * kLd], ah[1], al[1]);
+        split(qw[8 * kk + 4], ah[2], al[2]);
+        split(qw[8 * kk + 8 * kLd + 4], ah[3], al[3]);
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb) {
+          const float* kp = ks + (8 * nb + g) * kLd + 8 * kk + t;
+          uint32_t bh[2], bl[2];
+          split(kp[0], bh[0], bl[0]);
+          split(kp[4], bh[1], bl[1]);
+          mma3(acc[nb][kk % kKP], ah, al, bh, bl);
+        }
+      }
+
+      // scale; mask only the tiles that need it
+      const bool edge = k0 + kBK > a.sk ||
+                        (a.causal && k0 + kBK - 1 > qw0) ||
+                        (a.window > 0 && k0 <= qw0 + 15 - a.window);
+      float s[kNB][4];
+#pragma unroll
+      for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float x = acc[nb][0][2 * i + e];
+#pragma unroll
+            for (int c = 1; c < kKP; ++c) x += acc[nb][c][2 * i + e];
+            x *= a.scale;
+            if (edge) {
+              const int kpos = k0 + 8 * nb + 2 * t + e;
+              const int qpos = row0 + 8 * i;
+              bool ok = kpos < a.sk;
+              if (a.causal) ok = ok && kpos <= qpos;
+              if (a.window > 0) ok = ok && kpos > qpos - a.window;
+              x = ok ? x : kNegInf;
+            }
+            s[nb][2 * i + e] = x;
+          }
+
+      // online softmax in accurate float32: the four lanes of a row
+      // reduce by shuffles
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        float mx = kNegInf;
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb)
+          mx = fmaxf(mx, fmaxf(s[nb][2 * i], s[nb][2 * i + 1]));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = expf(m[i] - m_new);
+        m[i] = m_new;
+        float sum = 0.0f;
+#pragma unroll
+        for (int nb = 0; nb < kNB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = expf(s[nb][2 * i + e] - m_new);
+            s[nb][2 * i + e] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        l[i] = l[i] * alpha + sum;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          o[n][2 * i] *= alpha;
+          o[n][2 * i + 1] *= alpha;
+        }
+      }
+
+      // O += P V. The S fragment holds keys 2t and 2t + 1 of each octet
+      // where the A fragment wants columns t and t + 4: column t is read
+      // as key 2t and t + 4 as key 2t + 1, and V's B fragment takes its
+      // keys in the same order, so P stays in its registers
+#pragma unroll
+      for (int kb8 = 0; kb8 < kNB; ++kb8) {
+        uint32_t ph[4], pl[4];
+        split(s[kb8][0], ph[0], pl[0]);
+        split(s[kb8][2], ph[1], pl[1]);
+        split(s[kb8][1], ph[2], pl[2]);
+        split(s[kb8][3], ph[3], pl[3]);
+        const float* vp = vs + (8 * kb8 + 2 * t) * kLd + g;
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          uint32_t bh[2], bl[2];
+          split(vp[8 * n], bh[0], bl[0]);
+          split(vp[kLd + 8 * n], bh[1], bl[1]);
+          mma3(o[n], ph, pl, bh, bl);
+        }
+      }
+    }
+    __syncthreads();  // stage it % kStages is refilled at it + 1
+  }
+
+  if (!rows_live) return;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = row0 + 8 * i;
+    if (qpos >= a.sq) continue;
+    const float den = fmaxf(l[i], 1e-30f);
+    float* orow = ob + static_cast<long long>(qpos) * a.o_ss;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      const int col = 8 * n + 2 * t;
+      if (col < a.d)
+        *reinterpret_cast<float2*>(orow + col) =
+            make_float2(o[n][2 * i] / den, o[n][2 * i + 1] / den);
+    }
+  }
+}
+
+template <int NT>
+cudaError_t launch(const FlashArgs& a, int batch, cudaStream_t stream) {
+  auto kernel = flash_attention_f32tc_kernel<NT>;
+  const int smem = static_cast<int>(Geo<NT>::bytes);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(batch * a.hq, (a.sq + kBQ - 1) / kBQ);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// the wrapper's rule for this kernel, checked again: float32, D a
+// multiple of 8 up to 256, 16-byte-aligned bases, strides of 4-element
+// multiples
+bool takes(const FlashArgs& a, int dtype) {
+  const auto aligned = [](const void* p) {
+    return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+  };
+  const long long strides[] = {a.q_sb, a.q_sh, a.q_ss, a.k_sb, a.k_sh,
+                               a.k_ss, a.v_sb, a.v_sh, a.v_ss};
+  for (long long s : strides)
+    if (s % 4 != 0) return false;
+  return dtype == 0 && a.d % 8 == 0 && a.d <= 256 && aligned(a.q) &&
+         aligned(a.k) && aligned(a.v) && aligned(a.o) && a.o_ss % 2 == 0;
+}
+
+// the instances: D 16, 24, 32, 64, 80, 128, 192 and 256 exactly; another
+// D runs the next one up, its columns past D zeros
+cudaError_t launch_nt(const FlashArgs& a, int batch, cudaStream_t stream) {
+  const int nt = a.d / 8;
+  if (nt <= 2) return launch<2>(a, batch, stream);
+  if (nt <= 3) return launch<3>(a, batch, stream);
+  if (nt <= 4) return launch<4>(a, batch, stream);
+  if (nt <= 8) return launch<8>(a, batch, stream);
+  if (nt <= 10) return launch<10>(a, batch, stream);
+  if (nt <= 16) return launch<16>(a, batch, stream);
+  if (nt <= 24) return launch<24>(a, batch, stream);
+  if (nt <= 32) return launch<32>(a, batch, stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace tf32
+
 }  // namespace
 
 extern "C" {
@@ -737,9 +1097,10 @@ extern "C" {
 int flash_attention_max_head_dim() { return 256; }
 
 // dtype: 0 float32, 1 bfloat16. Strides in elements; the last dim of
-// every operand is dense. tensor_cores: 1 runs the tensor-core kernel
-// (the wrapper's takes_tensor_cores held; refused otherwise), 0 the SIMT
-// kernel. Launch on `stream`; returns cudaGetLastError() (0 on success).
+// every operand is dense. kernel (the wrapper's which_kernel): 0 the SIMT
+// kernel, 1 the bfloat16 tensor-core kernel, 2 the split-TF32 float32 one
+// (1 and 2 are refused where their rule does not hold). Launch on
+// `stream`; returns cudaGetLastError() (0 on success).
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int dtype, int batch, int hq, int hkv,
                            int sq, int sk, int d, long long q_sb,
@@ -747,7 +1108,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            long long k_sh, long long k_ss, long long v_sb,
                            long long v_sh, long long v_ss, long long o_sb,
                            long long o_sh, long long o_ss, float scale,
-                           int causal, int window, int tensor_cores,
+                           int causal, int window, int kernel,
                            void* stream) {
   if (d < 1 || d > 256 || hkv < 1 || hq % hkv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -755,10 +1116,16 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                     d,    q_sb, q_sh, q_ss, k_sb, k_sh, k_ss,  v_sb,
                     v_sh, v_ss, o_sb, o_sh, o_ss, scale, causal, window};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tensor_cores) {
+  if (kernel == 1) {
     if (!tc::takes(a, dtype)) return static_cast<int>(cudaErrorInvalidValue);
     return static_cast<int>(tc::launch_np(a, batch, s));
   }
+  if (kernel == 2) {
+    if (!tf32::takes(a, dtype))
+      return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(tf32::launch_nt(a, batch, s));
+  }
+  if (kernel != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t err = dtype == 0
                               ? launch_nc<float>(a, batch, s)
                               : launch_nc<__nv_bfloat16>(a, batch, s);

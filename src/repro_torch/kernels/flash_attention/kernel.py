@@ -13,13 +13,17 @@ stream or raises: there is no fallback. The kernel reads q, k and v
 through their (batch, head, position) strides, so the transposed views
 of ``_split_heads`` need no copy; only the last dim must be dense.
 
-The source holds two kernels. :func:`takes_tensor_cores` is the one rule
-that picks between them: bfloat16 operands with a head dim that is a
-multiple of 16 and 16-byte-aligned bases and strides go to the
-tensor-core kernel, everything else (float32, other head dims, other
-alignments) to the SIMT kernel. ``launches["flash_attention"]`` counts
-every launch and ``launches["flash_attention_tc"]`` those of the
-tensor-core kernel.
+The source holds three kernels. :func:`which_kernel` is the one rule
+that picks among them, by type, head dim and alignment: bfloat16
+operands with a head dim that is a multiple of 16 go to the ``wgmma``
+tensor-core kernel (``"tc"``), float32 ones with a head dim that is a
+multiple of 8 to the split-TF32 tensor-core kernel (``"f32tc"``), each
+with 16-byte-aligned bases and strides; everything else (other head
+dims, other alignments) to the SIMT kernel (``"simt"``).
+``launches["flash_attention"]`` counts every launch,
+``launches["flash_attention_tc"]`` and
+``launches["flash_attention_f32tc"]`` those of the two tensor-core
+kernels.
 
 **The gradient.** On a CUDA tensor :func:`flash_attention` calls the op
 ``torch.ops.repro_torch.flash_attention``, whose forward launches the
@@ -57,7 +61,12 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "flash_attention.cu"
 MAX_HEAD_DIM = 256
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0}
+launches: Dict[str, int] = {"flash_attention": 0, "flash_attention_tc": 0,
+                            "flash_attention_f32tc": 0}
+# the C entry point's code of each kernel, and its launch counter
+KERNEL_CODES = {"simt": 0, "tc": 1, "f32tc": 2}
+KERNEL_COUNTERS = {"tc": "flash_attention_tc",
+                   "f32tc": "flash_attention_f32tc"}
 # calls of the backward op on real tensors (it launches no kernel of its
 # own: the plain version's ops)
 backward_calls: Dict[str, int] = {"flash_attention_backward": 0}
@@ -85,21 +94,36 @@ LIBRARY = CudaLibrary(SOURCE, _bind)
 build = LIBRARY.build
 
 
+def which_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """Which kernel takes these operands: ``"tc"`` (bfloat16 on
+    ``wgmma``) for three bfloat16 operands with the head dim a multiple
+    of 16; ``"f32tc"`` (split TF32 on ``mma.sync``) for three float32
+    ones with the head dim a multiple of 8; each only up to MAX_HEAD_DIM,
+    with a dense last dim, every base 16-byte aligned and every (batch,
+    head, position) stride a multiple of 16 bytes. ``"simt"`` for the
+    rest. One TF32 product cannot hold float32's 2e-5; the split one
+    (three products of TF32 halves) can."""
+    d = q.shape[-1]
+    dtypes = {t.dtype for t in (q, k, v)}
+    if dtypes == {torch.bfloat16}:
+        name, d_multiple, elts = "tc", 16, 8
+    elif dtypes == {torch.float32}:
+        name, d_multiple, elts = "f32tc", 8, 4
+    else:
+        return "simt"
+    if d % d_multiple != 0 or d > MAX_HEAD_DIM:
+        return "simt"
+    aligned = all(t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+                  and all(st % elts == 0 for st in t.stride()[:3])
+                  for t in (q, k, v))
+    return name if aligned else "simt"
+
+
 def takes_tensor_cores(q: torch.Tensor, k: torch.Tensor,
                        v: torch.Tensor) -> bool:
-    """Whether the tensor-core kernel takes these operands: all three
-    bfloat16 with a dense last dim, the head dim a multiple of 16 up to
-    MAX_HEAD_DIM, every base 16-byte aligned and every (batch, head,
-    position) stride a multiple of 8 elements. float32 stays on the SIMT
-    kernel: TF32 products cannot hold its 2e-5 tolerance."""
-    d = q.shape[-1]
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        return False
-    if d % 16 != 0 or d > MAX_HEAD_DIM:
-        return False
-    return all(t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-               and all(st % 8 == 0 for st in t.stride()[:3])
-               for t in (q, k, v))
+    """Whether the bfloat16 ``wgmma`` kernel takes these operands
+    (:func:`which_kernel` gives ``"tc"``)."""
+    return which_kernel(q, k, v) == "tc"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -211,14 +235,14 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                       device=dev).transpose(1, 2)
     if out.numel() == 0:
         return out
-    tc = takes_tensor_cores(q, k, v)
+    which = which_kernel(q, k, v)
     launch(launches, "flash_attention", dev,
            LIBRARY.get().flash_attention_launch,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
            DTYPES[q.dtype], b, hq, hkv, sq, sk, d,
            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
            *out.stride()[:3], ctypes.c_float(scale_val), int(causal),
-           int(window), int(tc))
-    if tc:
-        launches["flash_attention_tc"] += 1
+           int(window), KERNEL_CODES[which])
+    if which in KERNEL_COUNTERS:
+        launches[KERNEL_COUNTERS[which]] += 1
     return out

@@ -3,9 +3,10 @@
 The reference's op (``repro/kernels/flash_attention/ops.py``) picks a
 backend by argument (the XLA oracle or the Pallas kernel). The port has
 no backend switch: :func:`flash_attention` dispatches on its tensors'
-device, to the CUDA kernels for CUDA tensors (the tensor-core one or the
-SIMT one, by ``kernel.takes_tensor_cores``; or an exception) and to the
-plain version (``ref.py``) for CPU tensors.
+device, to the CUDA kernels for CUDA tensors (bfloat16 on ``wgmma``,
+float32 in split TF32 on ``mma.sync``, or the SIMT one, by
+``kernel.which_kernel``; or an exception) and to the plain version
+(``ref.py``) for CPU tensors.
 
 Contract: q (B, Hq, Sq, D), k and v (B, Hkv, Sk, D) with Hq a multiple
 of Hkv; ``causal`` masks keys after the query (positions from 0),

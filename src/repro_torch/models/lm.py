@@ -59,7 +59,7 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.param import ParamSpec, abstract, init_tensor
 from repro_torch.parallel.constraints import constrain
-from repro_torch.parallel.local import grouped
+from repro_torch.parallel.local import label_log_probs
 
 
 # ------------------------------------------------------------- block layout
@@ -401,16 +401,9 @@ class LanguageModel(nn.Module):
 
 
 def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    lp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-    # each row picks its label's log-probability: on a mesh each device
-    # picks its own rows' (and their gradient, a scatter into zeros of
-    # the rows' shape, stays on them)
-    ll = grouped(_pick, 1, lp, labels)
-    return -ll.mean()
-
-
-def _pick(lp: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    return torch.take_along_dim(lp, labels.long()[..., None], dim=-1)[..., 0]
+    # on a mesh the logits stay split over the vocab, as the reference's
+    # log_softmax keeps them (XLA partitions its reductions)
+    return -label_log_probs(logits.to(torch.float32), labels).mean()
 
 
 # what "dots" keeps: the aten ops a ``@`` or an einsum lowers to, and the

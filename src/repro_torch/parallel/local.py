@@ -1,7 +1,8 @@
 """Shard-local bodies of the model's steps that DTensor cannot shard op
 by op, or only at great cost: the decode step's in-place cache write,
 the MoE router's token fractions, the MoE's grouped dispatch and
-combine, and the SSM's chunked scan.
+combine, the SSM's chunked scan, and the cross entropy's pick of each
+label's log-probability from a vocab split over the model axis.
 
 Each function runs a single-device body (the cache write's own indexed
 assignment; for the others the body it is given) unchanged on plain
@@ -16,6 +17,8 @@ from typing import Callable
 
 import torch
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor._utils import \
+    compute_local_shape_and_global_offset
 from torch.distributed.tensor.experimental import local_map
 from torch.utils._pytree import tree_leaves
 
@@ -84,6 +87,53 @@ def _write_rows(cache, new, slot, bidx, seq_dim: int) -> None:
         cache[bidx, :, slot] = new
     else:
         cache[bidx, slot] = new
+
+
+def label_log_probs(logits: torch.Tensor,
+                    labels: torch.Tensor) -> torch.Tensor:
+    """``log_softmax(logits)[..., label]`` of each row: float32 logits
+    (..., V) and integer labels (...). On plain tensors it is
+    ``torch.log_softmax`` and ``take_along_dim``.
+
+    On a DTensor whose vocab (last dim) is split over mesh axes, the
+    vocab is never gathered: the log-sum-exp is each row's maximum
+    (reduced over the split) plus the log of the shards' summed
+    ``exp(x - max)`` (a partial sum), and each device picks the labels
+    that fall in its part of the vocab, 0 for the others, a partial sum
+    over the split (each label counted once). DTensor reduces the
+    partial sums, (...)-shaped, where they are read."""
+    if not isinstance(logits, DTensor):
+        lp = torch.log_softmax(logits, dim=-1)
+        return torch.take_along_dim(lp, labels.long()[..., None],
+                                    dim=-1)[..., 0]
+    last = logits.ndim - 1
+    mesh, placements = logits.device_mesh, logits.placements
+    # the rows' reductions over the split, each redistributed at once to
+    # the rows' layout (the split axes replicated): DTensor would
+    # otherwise pick a layout that splits the rows over those axes too,
+    # and move the logits' shards (all-to-all) to meet it in backward
+    rows = tuple(Replicate() if p == Shard(last) else p for p in placements)
+    m = logits.detach().amax(dim=-1, keepdim=True).redistribute(mesh, rows)
+    total = torch.exp(logits - m).sum(dim=-1, keepdim=True)
+    lse = (m + torch.log(total.redistribute(mesh, rows)))[..., 0]
+    shape = logits.shape
+
+    def pick(x, lab):
+        _, offset = compute_local_shape_and_global_offset(shape, mesh,
+                                                          placements)
+        local = lab.long() - offset[-1]
+        held = (local >= 0) & (local < x.shape[-1])
+        got = torch.take_along_dim(
+            x, local.clamp(0, x.shape[-1] - 1)[..., None], dim=-1)[..., 0]
+        return torch.where(held, got, torch.zeros((), dtype=x.dtype,
+                                                  device=x.device))
+
+    out = tuple(Partial() if p == Shard(last) else p for p in placements)
+    picked = local_map(pick, out_placements=(out,),
+                       in_placements=(placements, rows),
+                       device_mesh=mesh,
+                       redistribute_inputs=True)(logits, labels)
+    return picked.redistribute(mesh, rows) - lse
 
 
 def token_fraction(count: Callable, top_i: torch.Tensor) -> torch.Tensor:

@@ -194,10 +194,12 @@ def test_wrappers_check_shapes():
 
 
 # ------------------------------------------------------ the kernels' rules
-# ``takes_tensor_cores`` sends operands to flash attention's tensor-core
-# kernel or to its SIMT one; ``decode_splits`` sizes the decode split
-# kernel's grid from the shapes alone. Both are host functions of dtypes,
-# shapes, strides and addresses, so they are held here, without a card.
+# ``takes_tensor_cores`` says whether flash attention's bfloat16 ``wgmma``
+# kernel takes the operands (``which_kernel``, the three-way rule, is
+# held in ``tests/test_torch_attention_f32.py``); ``decode_splits``
+# sizes the decode split kernel's grid from the shapes alone. Both are
+# host functions of dtypes, shapes, strides and addresses, so they are
+# held here, without a card.
 H100_SMS = 132
 
 
@@ -213,7 +215,7 @@ def test_tensor_cores_take_bf16_head_dims_of_16(d):
 
 
 @pytest.mark.parametrize("dtype,d", [
-    (torch.float32, 64),               # TF32 cannot hold 2e-5
+    (torch.float32, 64),               # float32: the split-TF32 kernel
     (torch.bfloat16, 24),              # not a multiple of 16
     (torch.bfloat16, 8),
     (torch.bfloat16, 100),

@@ -35,7 +35,8 @@ def test_kernel_phases_on_cpu():
     assert fa["bound_by"] == "bytes"
     # on the CPU the wrapper runs the plain version: neither kernel
     for case in (fa, fa["ragged_float32"], fa["window_bfloat16"]):
-        assert case["launches"] == {"tensor_core": 0, "simt": 0}
+        assert case["launches"] == {"tensor_core": 0, "f32tc": 0,
+                                    "simt": 0}
     win = fa["window_bfloat16"]
     assert win["plain_ms"] > 0.0 and win["library_ms"] > 0.0
     assert win["max_abs_err"] == 0.0 and win["bound_ms"] > 0.0
@@ -60,15 +61,15 @@ def test_kernel_phases_on_cpu():
     # 54 (runs of 16): 11 a kv head
     assert long["blocks_with_work"] == 2 * 11
     assert long["bound_ms"] > dec["bound_ms"] > 0.0
-    simt = chip_smoke.phase_flash_attention_train(CPU, 2, 4, 2, 16, 32,
-                                                  reps=1)
-    assert simt["max_abs_err"] == 0.0 and simt["grad_max_abs_err"] == 0.0
+    train = chip_smoke.phase_flash_attention_train(CPU, 2, 4, 2, 16, 32,
+                                                   reps=1)
+    assert train["max_abs_err"] == 0.0 and train["grad_max_abs_err"] == 0.0
     launches = {"gbdt_logits": 2, "gbdt_grid_logits": 5,
-                "flash_attention": 40, "flash_attention_simt": 80,
+                "flash_attention": 40, "flash_attention_f32tc": 80,
                 "decode_attention": 640}
     line = chip_smoke.kernel_line(
         {"gbdt_logits": small, "gbdt_grid_logits": grid,
-         "flash_attention": fa, "flash_attention_simt": simt,
+         "flash_attention": fa, "flash_attention_f32tc": train,
          "decode_attention": dec}, launches)
     assert [k["name"] for k in line["kernels"]] == list(launches)
     for k in line["kernels"]:
@@ -186,7 +187,7 @@ def test_lm_phases_on_cpu():
     assert serve["generate"]["tail_ms_per_step"] > 0.0
     # on the CPU the wrappers run their plain versions: no launches
     none = {"flash_attention": 0, "flash_attention_tc": 0,
-            "decode_attention": 0}
+            "flash_attention_f32tc": 0, "decode_attention": 0}
     assert serve["prefill"]["launches"] == none
     assert serve["generate"]["launches"] == none
     assert cons["launches"] == none
@@ -207,11 +208,11 @@ def test_moe_phases_on_cpu():
                                             24, 16, seed=10, reps=1)
     assert fa["shape"] == [1, 2, 2, 40, 24] and fa["v_dim"] == 16
     assert fa["padded_columns_zero"] and fa["max_abs_err"] == 0.0
-    assert fa["launches"] == {"tensor_core": 0, "simt": 0}
+    assert fa["launches"] == {"tensor_core": 0, "f32tc": 0, "simt": 0}
     assert fa["scale"] == 24 ** -0.5 and fa["library_ms"] > 0.0
     assert fa["bound_ms"] > 0.0 and fa["call_ms"] > 0.0
     none = {"flash_attention": 0, "flash_attention_tc": 0,
-            "decode_attention": 0}
+            "flash_attention_f32tc": 0, "decode_attention": 0}
     cons = chip_smoke.phase_moe_consistency(
         CPU, moonshot, deepseek, depth=1, batch=2, n_tokens=6, cache_len=8,
         seed=12)
@@ -283,16 +284,17 @@ def test_family_phases_on_cpu(monkeypatch):
     fam = chip_smoke.family_phases(
         CPU, lambda name: reduced_config(get_arch(name)), 2)
     none = {"flash_attention": 0, "flash_attention_tc": 0,
-            "decode_attention": 0}
+            "flash_attention_f32tc": 0, "decode_attention": 0}
     assert all(r["phase_s"] > 0.0 for r in fam.values())
     assert fam["fa_hubert"]["causal"] is False
     assert fam["fa_rg"]["window"] == 8 and fam["fa_pali"]["window"] == 0
     assert fam["fa_simt_d256"]["dtype"] == "float32"
-    assert not fam["fa_simt_d256"]["takes_tensor_cores"]
+    assert fam["fa_simt_d256"]["kernel"] == "f32tc"
     assert fam["dec_rg"]["shape"][1:3] == [4, 1]
     for r in fam.values():
         if r["phase"] == "flash_attention":
-            assert r["launches"] == {"tensor_core": 0, "simt": 0}
+            assert r["launches"] == {"tensor_core": 0, "f32tc": 0,
+                                     "simt": 0}
             assert r["max_abs_err"] == 0.0 and r["bound_ms"] > 0.0
     cons = fam["consistency"]
     mamba = cons["mamba2-370m-smoke"]
@@ -319,7 +321,7 @@ def test_family_phases_on_cpu(monkeypatch):
     line = chip_smoke.kernel_line(
         {"gbdt_logits": fam["fa_rg"], "gbdt_grid_logits": fam["fa_pali"],
          "flash_attention": fam["fa_hubert"],
-         "flash_attention_simt": fam["fa_simt_d256"],
+         "flash_attention_f32tc": fam["fa_simt_d256"],
          "decode_attention": fam["dec_rg"]},
         {name: 0 for name in chip_smoke.KERNELS})
     assert all(set(row) == KEYS for row in line["kernels"])
@@ -351,12 +353,12 @@ def test_dense_phases_on_cpu(monkeypatch):
     out = chip_smoke.dense_phases(
         CPU, lambda name: reduced_config(get_arch(name)), 2)
     none = {"flash_attention": 0, "flash_attention_tc": 0,
-            "decode_attention": 0}
+            "flash_attention_f32tc": 0, "decode_attention": 0}
     assert all(r["phase_s"] > 0.0 for r in out.values())
     names = ("internlm2-20b-smoke", "command-r-plus-104b-smoke")
     for name in names:
         assert out[f"fa_{name}"]["launches"] == {"tensor_core": 0,
-                                                 "simt": 0}
+                                                 "f32tc": 0, "simt": 0}
         assert out[f"fa_{name}"]["max_abs_err"] == 0.0
         assert out[f"dec_{name}"]["max_abs_err"] == 0.0
         srv = out[f"serve_{name}"]
@@ -565,20 +567,27 @@ def test_lm_train_phase_on_cpu(tmp_path):
     assert d["grad_norm_rel_err"] <= d["grad_rel"]
     assert d["grad_worst"]["err_over_bound"] <= 1.0
     assert d["param_max_abs_err"] <= d["atol"] < d["param_max_move"] / 10
-    simt = d["qkv_grad"]
-    assert simt["shape"] == [8, cfg.n_heads, cfg.n_kv_heads, 16,
-                             cfg.resolved_head_dim]
-    assert simt["grad_max_abs_err"] == 0.0 and simt["library_ms"] > 0.0
+    f32tc = d["qkv_grad"]
+    assert f32tc["shape"] == [8, cfg.n_heads, cfg.n_kv_heads, 16,
+                              cfg.resolved_head_dim]
+    assert f32tc["grad_max_abs_err"] == 0.0 and f32tc["library_ms"] > 0.0
+    assert f32tc["kernel"] == "f32tc" and not f32tc["misaligned"]
+    # the same shape on misaligned views: the rule's SIMT kernel
+    simt = d["qkv_grad_simt"]
+    assert simt["kernel"] == "simt" and simt["misaligned"]
+    assert simt["shape"] == f32tc["shape"]
+    assert simt["max_abs_err"] == 0.0 and simt["grad_max_abs_err"] == 0.0
     # the kernel line lists all four kernels, K2 with a row for each of
-    # its two kernels (tensor cores for serving, SIMT for training)
+    # its two tensor-core kernels (bfloat16 for serving, split TF32 for
+    # training)
     line = chip_smoke.kernel_line(
         {name: {"max_abs_err": 0.0, "ms": 1.0, "plain_ms": 2.0,
                 "bound_ms": 0.5, "bound_by": "bytes"}
-         for name in chip_smoke.KERNELS} | {"flash_attention_simt": simt},
+         for name in chip_smoke.KERNELS} | {"flash_attention_f32tc": f32tc},
         {name: 1 for name in chip_smoke.KERNELS})
     assert [k["name"] for k in line["kernels"]] == [
         "gbdt_logits", "gbdt_grid_logits", "flash_attention",
-        "flash_attention_simt", "decode_attention"]
+        "flash_attention_f32tc", "decode_attention"]
     for k in line["kernels"]:
         assert set(k) == KEYS
 
@@ -824,7 +833,7 @@ def test_family_train_phases_on_cpu():
         assert r["phase"] == "flash_attention_train"
         assert r["max_abs_err"] == 0.0 and r["grad_max_abs_err"] == 0.0
         assert r["padded_columns_zero"] and r["bound_ms"] > 0.0
-        assert r["launches"] == {"tensor_core": 0, "simt": 0}
+        assert r["launches"] == {"tensor_core": 0, "f32tc": 0, "simt": 0}
         assert r["library_ms"] > 0.0 and r["phase_s"] > 0.0
     blocks = {"mamba2-370m": 0, "recurrentgemma-2b": 0, "paligemma-3b": 2,
               "hubert-xlarge": 2}

@@ -9,10 +9,12 @@ the absolute tolerance) over head dims 16, 64, 80, 128, 192 (MLA's
 qk_head_dim) and 256, ragged lengths, GQA ratios 1, 4 and 8 (and 10,
 recurrentgemma's MQA, in decode) and the three mask kinds, and each test
 asserts that
-the kernel launched (its counter moved). Flash attention's two kernels
-are told apart by ``launches["flash_attention_tc"]`` (the tensor-core
-kernel); decode attention's cache splits are checked at their
-boundaries, for determinism, and under CUDA-graph capture. This file
+the kernel launched (its counter moved). Flash attention's three kernels
+are told apart by ``launches["flash_attention_tc"]`` (the bfloat16
+``wgmma`` kernel) and ``launches["flash_attention_f32tc"]`` (the float32
+split-TF32 one), the rest being the SIMT kernel's; decode attention's
+cache splits are checked at their boundaries, for determinism, and
+under CUDA-graph capture. This file
 imports only the port, NumPy and torch, so it runs on a machine without
 JAX::
 
@@ -115,28 +117,80 @@ def test_flash_attention_reads_strided_views(dev):
     _assert_close(got, want)
 
 
-@pytest.mark.parametrize("dtype,d,tc", [
-    (torch.bfloat16, 16, True), (torch.bfloat16, 64, True),
-    (torch.bfloat16, 80, True), (torch.bfloat16, 128, True),
-    (torch.bfloat16, 256, True),
-    (torch.float32, 64, False),        # TF32 cannot hold 2e-5
-    (torch.bfloat16, 24, False),       # not a multiple of 16
+@pytest.mark.parametrize("dtype,d,kernel", [
+    (torch.bfloat16, 16, "tc"), (torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, 80, "tc"), (torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, 256, "tc"),
+    # float32: split TF32 (three TF32 products) holds 2e-5, one would not
+    (torch.float32, 64, "f32tc"),
+    (torch.float32, 24, "f32tc"),      # a multiple of 8 (reduced MLA)
+    (torch.float32, 20, "simt"),       # not a multiple of 8
+    (torch.bfloat16, 24, "simt"),      # not a multiple of 16
 ])
-def test_flash_attention_dispatch(dev, dtype, d, tc):
-    """bfloat16 with D a multiple of 16 takes the tensor-core kernel;
-    float32 and other head dims take the SIMT kernel."""
+def test_flash_attention_dispatch(dev, dtype, d, kernel):
+    """bfloat16 with D a multiple of 16 takes the ``wgmma`` kernel,
+    float32 with D a multiple of 8 the split-TF32 kernel; other head
+    dims take the SIMT kernel."""
     q, k, v = _normal(dev, d, dtype, (2, 8, 150, d), (2, 2, 150, d),
                       (2, 2, 150, d))
-    assert fa_kernel.takes_tensor_cores(q, k, v) == tc
+    assert fa_kernel.which_kernel(q, k, v) == kernel
+    assert fa_kernel.takes_tensor_cores(q, k, v) == (kernel == "tc")
     before = dict(fa_kernel.launches)
     got = fa_kernel.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize(dev)
     assert fa_kernel.launches["flash_attention"] == \
         before["flash_attention"] + 1
     assert fa_kernel.launches["flash_attention_tc"] == \
-        before["flash_attention_tc"] + int(tc)
+        before["flash_attention_tc"] + int(kernel == "tc")
+    assert fa_kernel.launches["flash_attention_f32tc"] == \
+        before["flash_attention_f32tc"] + int(kernel == "f32tc")
     _assert_close(got, flash_attention_ref(q, k, v, causal=True,
                                            scale=float(d) ** -0.5))
+
+
+# K2's float32 training shapes (B cut to 1): (Hq, Hkv, Sq, Sk, D, v_dim,
+# causal, window); granite's GQA 32/8, hubert's bidirectional D 80,
+# moonshot's D 128, MLA's D 192 (v padded from 128), recurrentgemma's
+# 10/1 D 256 window 2048, danube's heads with a window of 128, the D 256
+# shape at S 512; then ragged Sq and Sk and a window of 16
+F32_TRAIN_SHAPES = [
+    (32, 8, 256, 256, 64, 64, True, 0),
+    (16, 16, 256, 256, 80, 80, False, 0),
+    (16, 16, 256, 256, 128, 128, True, 0),
+    (128, 128, 256, 256, 192, 128, True, 0),
+    (10, 1, 256, 256, 256, 256, True, 2048),
+    (32, 8, 256, 256, 80, 80, True, 128),
+    (10, 1, 512, 512, 256, 256, True, 2048),
+    (32, 8, 100, 100, 64, 64, True, 16),
+    (10, 1, 77, 77, 256, 256, True, 16),
+    (16, 16, 37, 300, 128, 128, True, 0),
+    (32, 8, 130, 70, 80, 80, False, 0),
+    (128, 128, 45, 45, 192, 128, True, 16),
+]
+
+
+@pytest.mark.parametrize("hq,hkv,sq,sk,d,v_dim,causal,window",
+                         F32_TRAIN_SHAPES)
+def test_flash_attention_split_tf32_at_the_training_shapes(
+        dev, hq, hkv, sq, sk, d, v_dim, causal, window):
+    """The split-TF32 kernel against the plain version in float32 at
+    ``2e-5``: each training shape's heads, ragged lengths and windows;
+    MLA's padded columns exactly 0; its counter moved."""
+    q, k, v = _normal(dev, d + hq + sq, torch.float32, (1, hq, sq, d),
+                      (1, hkv, sk, d), (1, hkv, sk, v_dim))
+    v = torch.nn.functional.pad(v, (0, d - v_dim))
+    assert fa_kernel.which_kernel(q, k, v) == "f32tc"
+    before = dict(fa_kernel.launches)
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize(dev)
+    assert fa_kernel.launches["flash_attention_f32tc"] == \
+        before["flash_attention_f32tc"] + 1
+    assert fa_kernel.launches["flash_attention"] == \
+        before["flash_attention"] + 1
+    _assert_close(got, flash_attention_ref(q, k, v, causal=causal,
+                                           window=window,
+                                           scale=float(d) ** -0.5))
+    assert bool((got[..., v_dim:] == 0).all())
 
 
 def test_flash_attention_tensor_cores_take_misaligned_views_to_simt(dev):
@@ -521,6 +575,7 @@ def test_serve_engine_on_cuda(dev):
         fwd, _ = model.forward({"tokens": tokens})
         assert fa_kernel.launches["flash_attention"] == cfg.n_layers
         assert fa_kernel.launches["flash_attention_tc"] == 0   # float32
+        assert fa_kernel.launches["flash_attention_f32tc"] == cfg.n_layers
         cache = model.init_cache(2, 16, dtype=torch.float32)
         for t in range(12):
             lg, cache = model.decode_step(
@@ -635,7 +690,7 @@ def test_moe_family_on_cuda(dev, name):
     """The reduced MoE archs on the card against the same weights on the
     CPU: forward and step-by-step decode logits at ``5e-4``, the router's
     aux loss at ``rel=1e-6``, the engine's greedy tokens equal; K2 once
-    per layer (float32: SIMT), K3 once per layer per step for moonshot
+    per layer (float32: split TF32), K3 once per layer per step for moonshot
     and never for MLA's absorbed decode."""
     cfg = reduced_config(get_arch(name))
     cpu = build_model(cfg, device="cpu", dtype=torch.float32)
@@ -675,7 +730,7 @@ def test_new_families_on_cuda(dev, name, depth):
     forward logits (the VLM's with patches, hubert's over frames) and,
     for the decoders, step-by-step decode logits at ``5e-4`` and the
     engine's greedy tokens equal; K2 once per attention block (float32:
-    SIMT), K3 once per attention block per step, neither for SSM and
+    split TF32), K3 once per attention block per step, neither for SSM and
     RG-LRU blocks."""
     cfg = reduced_config(get_arch(name))
     if depth is not None:
@@ -703,7 +758,8 @@ def test_new_families_on_cuda(dev, name, depth):
                                for k, v in batch.items()})
         assert _max_err(fwd.cpu(), want) <= 5e-4
         assert fa_kernel.launches == {"flash_attention": n_attn,
-                                      "flash_attention_tc": 0}
+                                      "flash_attention_tc": 0,
+                                      "flash_attention_f32tc": n_attn}
         if not cfg.decoder:
             return
         text = {"tokens": torch.from_numpy(tokens)}

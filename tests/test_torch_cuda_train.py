@@ -15,7 +15,7 @@ after it at the reference's ``atol=1e-5`` of the CPU's step, plus, where
 the CPU's gradient lies within its bar of 0, what the bar can move
 AdamW's step there (``_Updates.slack``); also at ``atol`` of the CPU's
 AdamW fed the card's gradients. The MoE dispatch states equal the CPU's.
-K2 (the SIMT kernel) launches once per attention block (the MTP head's
+K2 (the split-TF32 kernel) launches once per attention block (the MTP head's
 included) and its backward op runs as often. This file imports only the
 port, ``chip_smoke.py``, NumPy and torch, so it runs on a machine
 without JAX::

@@ -51,7 +51,8 @@ from repro.train.step import make_train_step as ref_make_train_step
 from repro_torch.config import (MLAConfig, MoEConfig, RunConfig,
                                 ShapeConfig, TrainConfig, get_arch,
                                 reduced_config)
-from repro_torch.kernels.flash_attention.kernel import takes_tensor_cores
+from repro_torch.kernels.flash_attention.kernel import (takes_tensor_cores,
+                                                       which_kernel)
 from repro_torch.models import attention as attn
 from repro_torch.models import moe
 from repro_torch.models.convert import _unstack, load_reference_params
@@ -300,7 +301,7 @@ def test_mla_operands_take_the_tensor_core_kernel(mla_case):
     """The operands MLA hands to flash attention: q and k at D 192
     (nope 128 + rope 64), v zero-padded from 128 to 192; in bfloat16 they
     pass the tensor-core kernel's rule (dense, 16-byte aligned, strides
-    multiples of 8)."""
+    multiples of 8), in float32 the split-TF32 kernel's."""
     cfg, _, params, x = mla_case
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = attn.mla_operands(
@@ -312,6 +313,8 @@ def test_mla_operands_take_the_tensor_core_kernel(mla_case):
         # the rope key is one per position, shared by the heads
         assert torch.equal(k[:, 0, :, 128:], k[:, 1, :, 128:])
         assert takes_tensor_cores(q, k, v) == (dtype == torch.bfloat16)
+        assert which_kernel(q, k, v) == ("tc" if dtype == torch.bfloat16
+                                         else "f32tc")
 
 
 def test_mla_decode_matches_reference_and_full_pass(mla_case):

@@ -663,6 +663,61 @@ def test_dryrun_counts_near_the_reference():
     assert 0.5 * ref["flops"] <= port["flops"] <= 1.5 * ref["flops"], report
 
 
+_XENT = textwrap.dedent("""
+    import json, sys, logging
+    logging.disable(logging.WARNING)
+    import torch
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.dryrun import fake_world
+    from repro_torch.models.lm import _xent
+    from repro_torch.roofline.analysis import ProgramCost
+
+    fake_world(8)
+    mesh = init_device_mesh("cpu", (2, 4), mesh_dim_names=("data", "model"))
+    b, s, v = (int(a) for a in sys.argv[1:4])
+    logits = distribute_tensor(
+        torch.empty((b, s, v), device="meta"), mesh,
+        [Shard(0), Shard(2)]).requires_grad_(True)
+    labels = distribute_tensor(
+        torch.zeros((b, s), dtype=torch.long, device="meta"), mesh,
+        [Shard(0), Replicate()])
+    with ProgramCost((logits, labels)) as cost:
+        (grad,) = torch.autograd.grad(_xent(logits, labels), [logits])
+    print(json.dumps({"collectives": cost.collectives,
+                      "temp_bytes": cost.temp_bytes,
+                      "shard_bytes": 4 * logits.to_local().numel(),
+                      "grad_layout_kept":
+                          grad.placements == logits.placements}))
+""")
+
+
+def test_cross_entropy_keeps_the_vocab_split():
+    """The loss and its gradient on logits split over the batch (data)
+    and the vocab (model), counted on a fake 2x4 world: only the rows'
+    reductions cross the model axis (all-reduces of (B, S) values), no
+    logit shard moves (no all-gather, no all-to-all, whose CPU fallback
+    gathers the vocab whole), the gradient keeps the logits' layout and
+    the temporaries stay within a few shards. ``log_softmax`` on the
+    DTensor moved the shards to gather the vocab: the train_4k cell of
+    paligemma-3b on 16x16 peaked at 2.0e11 B a device against the
+    reference's 2.7e10 (``dryrun_xent_peaks.py``)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(REPO, "src")}
+    b, s, v = 8, 16, 4096
+    out = subprocess.run([sys.executable, "-c", _XENT, str(b), str(s),
+                          str(v)], env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads(out.stdout.strip().splitlines()[-1])
+    moved = {k: rec["collectives"][k] for k in ("all-gather", "all-to-all",
+                                                "reduce-scatter")}
+    assert moved == {k: 0.0 for k in moved}, moved
+    # each reduction over the vocab: (B / 2, S) float32 values a device
+    assert 0 < rec["collectives"]["all-reduce"] <= 8 * 4 * (b // 2) * s
+    assert rec["grad_layout_kept"]
+    assert rec["temp_bytes"] <= 4 * rec["shard_bytes"]
+
+
 def test_dryrun_records_a_skipped_cell(tmp_path):
     from repro_torch.launch.dryrun import run_cell
     rec = run_cell("hubert-xlarge", "decode_32k", False,

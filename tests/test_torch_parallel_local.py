@@ -19,7 +19,8 @@ Then four gloo processes stand a 2x2 ``("data", "model")`` mesh of real
 CPU tensors and run the sharded paths: the cache write on every cache
 layout ``cache_pspec`` chooses (batch, kv heads, head dim, MLA's latent
 dim, the sequence over both axes), the token fractions as a partial
-sum, the MoE's grouped dispatch and combine, the microbatch split of a
+sum, the MoE's grouped dispatch and combine, the cross entropy with
+the vocab split (over one axis and over both), the microbatch split of a
 sharded batch, and the attention forward and backward ops with the
 query heads sharded and the single kv head repeated to the axis, or,
 where the axis does not divide the query heads, the batch split over
@@ -236,6 +237,26 @@ _WORKER = textwrap.dedent("""
     y = grouped(moe.combine, 1, put(out, ("data", "model", None, None)),
                 put(tp, ("data", None, None)), dstate)
     assert torch.equal(y.full_tensor(), moe.combine(out, tp, state))
+
+    # the cross entropy on logits split over the batch and the vocab: the
+    # loss and its gradient equal the single-device ones, and the
+    # gradient keeps the logits' layout
+    from repro_torch.models.lm import _xent
+    logits, labels = rand(4, 3, 10), torch.from_numpy(
+        rng.integers(0, 10, (4, 3)))
+    want_l = logits.clone().requires_grad_(True)
+    want = _xent(want_l, labels)
+    want.backward()
+    for spec in (("data", None, "model"), (None, None, ("data", "model")),
+                 ("data", None, None)):
+        d = put(logits, spec).requires_grad_(True)
+        got = _xent(d, put(labels, spec[:2]))
+        got.backward()
+        torch.testing.assert_close(got.full_tensor(), want, rtol=1e-6,
+                                   atol=0)
+        assert d.grad.placements == d.placements, spec
+        torch.testing.assert_close(d.grad.full_tensor(), want_l.grad,
+                                   rtol=1e-5, atol=1e-7)
 
     set_activation_rules(default_rules(MeshAxes(mesh)))
     register_op_shardings()
