@@ -20,6 +20,23 @@ from typing import Callable, Dict, List, Optional
 ROOT = Path(__file__).resolve().parent
 
 
+def nvcc_report(source: Path, out: Optional[Path] = None) -> str:
+    """Build ``source`` with the port's ``nvcc`` flags into ``out`` (a
+    temporary file where None) and return ptxas's report, which a
+    library built earlier does not print. Raises where nvcc fails."""
+    import tempfile
+    from repro_torch.kernels import _build
+    with tempfile.TemporaryDirectory() as d:
+        lib = out if out is not None else Path(d) / "lib.so"
+        proc = subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o",
+                               str(lib), str(source)], capture_output=True,
+                              text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}"
+                           f"{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
 def main(script: str, doc: str, measure: Callable[[Path], Dict],
          check: Optional[Callable[[List[Dict]], Dict]] = None) -> int:
     """Run the A/B of ``script`` (its ``__file__``) from ``sys.argv``:

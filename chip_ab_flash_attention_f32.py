@@ -39,11 +39,9 @@ limit and each case's mean ms by tree.
 """
 from __future__ import annotations
 
-import os
 import re
 import subprocess
 import sys
-import tempfile
 from pathlib import Path
 from typing import Dict, List
 
@@ -72,14 +70,8 @@ def _ptxas(tree: Path) -> Dict[str, Dict]:
     source, from a fresh ``nvcc`` with its own flags (a library built
     earlier prints no report)."""
     import chip_smoke
-    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention import kernel as fa
-    with tempfile.TemporaryDirectory() as d:
-        proc = subprocess.run(
-            [_build.nvcc(), *_build.NVCC_FLAGS, "-o",
-             os.path.join(d, "lib.so"), str(fa.SOURCE)],
-            capture_output=True, text=True, timeout=600, check=True)
-    report = proc.stdout + proc.stderr
+    report = chip_ab.nvcc_report(fa.SOURCE)
     return {re.sub(r"^_ZN\d*_GLOBAL__N__\w+?\d+", "", k): v
             for k, v in chip_smoke.ptxas_entries(report, "kernel").items()}
 

@@ -322,8 +322,10 @@ def sass_tensor_core_counts(library: Path) -> Optional[Dict[str, int]]:
 
 def phase_build() -> Dict:
     """Every kernel library, one ``nvcc`` each, all started together; the
-    tensor-core instructions of each one's SASS. The flash-attention
-    library must hold some (its bfloat16 kernel runs on wgmma)."""
+    tensor-core instructions of each one's SASS and the registers and
+    spills of each instance of K2's two tensor-core kernels. The
+    flash-attention library must hold ``HGMMA`` (its bfloat16 kernel runs
+    on wgmma), and no instance of that kernel may spill."""
     from concurrent.futures import ThreadPoolExecutor
 
     def one(lib):
@@ -332,9 +334,10 @@ def phase_build() -> Dict:
         return {"seconds": time.perf_counter() - t0, "library": path.name,
                 **_ptxas_summary(report),
                 "tensor_core_instructions": sass_tensor_core_counts(path),
-                # each panel count of K2's tensor-core kernel (ILi<NP>E:
-                # NP 64-column panels; NP 4 is D 256) and each head-dim
-                # instance of its split-TF32 kernel (ILi<NT>E: D = 8 NT)
+                # each instance of K2's bfloat16 kernel (ILi<NP>ELi<T>E:
+                # NP 64-column panels and T 16-column tails; 1, 1 is D 80,
+                # 4, 0 is D 256) and each head-dim instance of its
+                # split-TF32 kernel (ILi<NT>E: D = 8 NT)
                 "flash_attention_tc_kernel": ptxas_entries(
                     report, "flash_attention_tc_kernel"),
                 "flash_attention_f32tc_kernel": ptxas_entries(
@@ -345,9 +348,12 @@ def phase_build() -> Dict:
     with ThreadPoolExecutor(len(libs)) as ex:
         done = dict(zip(libs, ex.map(one, libs.values())))
     tc = done["flash_attention"]["tensor_core_instructions"]
-    gate(tc is not None and sum(tc.values()) > 0,
-         f"the flash-attention library holds no tensor-core instruction "
-         f"({tc})")
+    gate(tc is not None and tc["HGMMA"] > 0,
+         f"the flash-attention library holds no wgmma instruction ({tc})")
+    wgmma = done["flash_attention"]["flash_attention_tc_kernel"]
+    gate(len(wgmma) > 0 and all(e["spill_store_bytes"] == 0
+                                for e in wgmma.values()),
+         f"K2's bfloat16 kernel spills or was not reported: {wgmma}")
     return {"phase": "build", "seconds": time.perf_counter() - t0,
             "libraries": done}
 

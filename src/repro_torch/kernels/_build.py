@@ -5,8 +5,8 @@ C interface. :class:`CudaLibrary` compiles it with ``nvcc`` for
 ``sm_90a`` into ``build/`` beside the package on the first CUDA launch
 of the process (never at import: a machine without ``nvcc`` imports the
 wrappers and runs their plain versions), names the library by a hash of
-the source so a stale build is never loaded, and binds it with
-``ctypes``. Every C entry point returns the ``cudaError_t`` of its
+the source so a stale build is never loaded, keeps ptxas's report
+beside it, and binds it with ``ctypes``. Every C entry point returns the ``cudaError_t`` of its
 launch, and :func:`launch` raises on anything but 0 and counts the
 launch.
 """
@@ -61,11 +61,14 @@ class CudaLibrary:
 
     def build(self) -> Tuple[Path, str]:
         """Compile the source (if it has no build yet); returns the
-        library path and the compiler's register/shared-memory report."""
+        library path and the compiler's register/shared-memory report.
+        The report is kept beside the library, so a build made earlier
+        returns the report it printed then."""
         digest = hashlib.sha256(self.source.read_bytes()).hexdigest()[:16]
         lib = self.build_dir / f"lib{self.source.stem}-{digest}.so"
+        kept = lib.with_suffix(".ptxas.txt")
         if lib.exists():
-            return lib, ""
+            return lib, kept.read_text() if kept.exists() else ""
         self.build_dir.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
@@ -74,8 +77,13 @@ class CudaLibrary:
             raise RuntimeError(f"nvcc failed on {self.source.name} "
                                f"({proc.returncode}):\n"
                                f"{proc.stdout}{proc.stderr}")
+        report = proc.stdout + proc.stderr
+        # the report before the library: a library never stands without
+        tmp_report = kept.with_suffix(f".{os.getpid()}.tmp")
+        tmp_report.write_text(report)
+        os.replace(tmp_report, kept)
         os.replace(tmp, lib)
-        return lib, proc.stdout + proc.stderr
+        return lib, report
 
     def get(self) -> ctypes.CDLL:
         with self._lock:

@@ -18,8 +18,9 @@ that picks among them, by type, head dim and alignment: bfloat16
 operands with a head dim that is a multiple of 16 go to the ``wgmma``
 tensor-core kernel (``"tc"``), float32 ones with a head dim that is a
 multiple of 8 to the split-TF32 tensor-core kernel (``"f32tc"``), each
-with 16-byte-aligned bases and strides; everything else (other head
-dims, other alignments) to the SIMT kernel (``"simt"``).
+with 16-byte-aligned bases and strides (the ``wgmma`` kernel only with
+a positive scale); everything else (other head dims, other alignments)
+to the SIMT kernel (``"simt"``).
 ``launches["flash_attention"]`` counts every launch,
 ``launches["flash_attention_tc"]`` and
 ``launches["flash_attention_f32tc"]`` those of the two tensor-core
@@ -85,6 +86,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         [P, P, P, P, I, I, I, I, I, I, I] + [L] * 12 + [F, I, I, I, P])
     lib.flash_attention_launch.restype = I
     lib.flash_attention_max_head_dim.restype = I
+    lib.flash_attention_tc_map_geometry.argtypes = (
+        [I, I, I, I] + [L] * 3 + [I, I, P])
+    lib.flash_attention_tc_map_geometry.restype = None
     if lib.flash_attention_max_head_dim() != MAX_HEAD_DIM:
         raise RuntimeError("flash_attention.cu's head-dim limit differs "
                            "from MAX_HEAD_DIM")
@@ -94,18 +98,22 @@ LIBRARY = CudaLibrary(SOURCE, _bind)
 build = LIBRARY.build
 
 
-def which_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+def which_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 scale: Optional[float] = None) -> str:
     """Which kernel takes these operands: ``"tc"`` (bfloat16 on
     ``wgmma``) for three bfloat16 operands with the head dim a multiple
-    of 16; ``"f32tc"`` (split TF32 on ``mma.sync``) for three float32
-    ones with the head dim a multiple of 8; each only up to MAX_HEAD_DIM,
-    with a dense last dim, every base 16-byte aligned and every (batch,
-    head, position) stride a multiple of 16 bytes. ``"simt"`` for the
-    rest. One TF32 product cannot hold float32's 2e-5; the split one
-    (three products of TF32 halves) can."""
+    of 16 and a positive ``scale`` (None is the default d ** -0.5: the
+    kernel takes the row max before scaling); ``"f32tc"`` (split TF32 on
+    ``mma.sync``) for three float32 ones with the head dim a multiple of
+    8; each only up to MAX_HEAD_DIM, with a dense last dim, every base
+    16-byte aligned and every (batch, head, position) stride a multiple
+    of 16 bytes. ``"simt"`` for the rest. One TF32 product cannot hold
+    float32's 2e-5; the split one (three products of TF32 halves) can."""
     d = q.shape[-1]
     dtypes = {t.dtype for t in (q, k, v)}
     if dtypes == {torch.bfloat16}:
+        if scale is not None and not scale > 0:
+            return "simt"
         name, d_multiple, elts = "tc", 16, 8
     elif dtypes == {torch.float32}:
         name, d_multiple, elts = "f32tc", 8, 4
@@ -119,11 +127,11 @@ def which_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return name if aligned else "simt"
 
 
-def takes_tensor_cores(q: torch.Tensor, k: torch.Tensor,
-                       v: torch.Tensor) -> bool:
+def takes_tensor_cores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       scale: Optional[float] = None) -> bool:
     """Whether the bfloat16 ``wgmma`` kernel takes these operands
     (:func:`which_kernel` gives ``"tc"``)."""
-    return which_kernel(q, k, v) == "tc"
+    return which_kernel(q, k, v, scale) == "tc"
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -235,7 +243,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
                       device=dev).transpose(1, 2)
     if out.numel() == 0:
         return out
-    which = which_kernel(q, k, v)
+    which = which_kernel(q, k, v, scale_val)
     launch(launches, "flash_attention", dev,
            LIBRARY.get().flash_attention_launch,
            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -408,6 +408,36 @@ def test_ptxas_entries():
                     "spill_load_bytes": None}}
 
 
+def test_build_keeps_the_ptxas_report_of_a_built_library(tmp_path,
+                                                         monkeypatch):
+    """``phase_build`` gates on the report ``CudaLibrary.build`` returns:
+    a library built earlier in the checkout (by the card tests, say)
+    returns the report its build printed, without a second nvcc."""
+    from repro_torch.kernels import _build
+    calls = tmp_path / "calls"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\necho call >> " + str(calls) + "\n"
+        "while [ $# -gt 0 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        "echo lib > \"$out\"\n"
+        "echo \"ptxas info    : Compiling entry function '_Z3fooILi4EEv'\" "
+        ">&2\necho \"ptxas info    : Used 168 registers\" >&2\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "nvcc", lambda: str(fake))
+    source = tmp_path / "csrc" / "foo.cu"
+    source.parent.mkdir()
+    source.write_text("// a kernel\n")
+    lib = _build.CudaLibrary(source, lambda cdll: None)
+    first_path, first = lib.build()
+    again_path, again = lib.build()
+    assert again_path == first_path and first_path.exists()
+    assert again == first
+    assert chip_smoke.ptxas_entries(again, "foo") == {
+        "_Z3fooILi4EEv": {"registers": 168, "spill_store_bytes": None,
+                          "spill_load_bytes": None}}
+    assert calls.read_text().count("call") == 1
+
+
 def test_trace_reads_device_time_and_ranges():
     """The Chrome trace's reading: the device's kernels, copies and
     memsets by name (host ops, device-side range annotations and flow

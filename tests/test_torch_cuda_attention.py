@@ -20,6 +20,7 @@ JAX::
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda_attention.py
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -241,6 +242,192 @@ def test_flash_attention_tensor_cores_at_the_families_shapes(
     _assert_close(got, flash_attention_ref(q, k, v, causal=causal,
                                            window=window,
                                            scale=float(d) ** -0.5))
+
+
+# The bfloat16 prefill and encode shapes of the LM paths, B cut to 1:
+# (Hq, Hkv, S, D, v_dim, causal, window): granite (and its window of 512),
+# moonshot, internlm2, command-r-plus, MLA (D 192, v padded from 128),
+# recurrentgemma (window 2048 at S 2048 and 4096), paligemma, hubert
+TC_PATH_SHAPES = [
+    (32, 8, 2048, 64, 64, True, 0),
+    (32, 8, 2048, 64, 64, True, 512),
+    (16, 16, 2048, 128, 128, True, 0),
+    (48, 8, 2048, 128, 128, True, 0),
+    (96, 8, 2048, 128, 128, True, 0),
+    (128, 128, 2048, 192, 128, True, 0),
+    (10, 1, 2048, 256, 256, True, 2048),
+    (10, 1, 4096, 256, 256, True, 2048),
+    (8, 1, 2048, 256, 256, True, 0),
+    (16, 16, 2048, 80, 80, False, 0),
+]
+
+
+def _tc_case(dev, seed, q_shape, kv_shape, v_dim=None, causal=True,
+             window=0):
+    """The ``wgmma`` kernel on seeded operands against the plain version
+    (2e-2 and the row rule); its counter moved once; columns past
+    ``v_dim`` exactly 0. Returns the output."""
+    q, k, v = _normal(dev, seed, torch.bfloat16, q_shape, kv_shape,
+                      kv_shape)
+    d = q.shape[-1]
+    if v_dim is not None:
+        v = torch.nn.functional.pad(v[..., :v_dim], (0, d - v_dim))
+    assert fa_kernel.which_kernel(q, k, v) == "tc"
+    before = dict(fa_kernel.launches)
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize(dev)
+    assert fa_kernel.launches["flash_attention_tc"] == \
+        before["flash_attention_tc"] + 1
+    _assert_close(got, flash_attention_ref(q, k, v, causal=causal,
+                                           window=window,
+                                           scale=float(d) ** -0.5))
+    if v_dim is not None:
+        assert bool((got[..., v_dim:] == 0).all())
+    return got
+
+
+@pytest.mark.parametrize("hq,hkv,s,d,v_dim,causal,window", TC_PATH_SHAPES)
+def test_tc_kernel_at_the_path_shapes(dev, hq, hkv, s, d, v_dim, causal,
+                                      window):
+    _tc_case(dev, hq + d + window, (1, hq, s, d), (1, hkv, s, d), v_dim,
+             causal, window)
+
+
+@pytest.mark.parametrize("d", list(range(16, 257, 16)))
+def test_tc_kernel_at_every_head_dim(dev, d):
+    """Every D the rule sends to the kernel: its panels (and D 80's tail)
+    with ragged Sq and Sk past 128-row blocks and key tiles."""
+    _tc_case(dev, 100 + d, (2, 4, 200, d), (2, 2, 200, d))
+    _tc_case(dev, 200 + d, (1, 4, 150, d), (1, 4, 333, d), causal=False)
+
+
+@pytest.mark.parametrize("window", [1, 63, 64, 65, 127, 128, 129, 300])
+@pytest.mark.parametrize("d", [64, 80, 256])
+def test_tc_kernel_at_window_edges(dev, window, d):
+    """Windows on both sides of the 64- and 128-key tile boundaries."""
+    _tc_case(dev, window + d, (1, 4, 600, d), (1, 2, 600, d),
+             window=window)
+
+
+@pytest.mark.parametrize("sq,sk", [(1, 700), (37, 300), (129, 257),
+                                   (300, 130), (128, 128), (5, 1)])
+@pytest.mark.parametrize("d,causal", [(80, True), (80, False),
+                                      (192, True), (128, False)])
+def test_tc_kernel_with_ragged_and_unequal_lengths(dev, sq, sk, d, causal):
+    _tc_case(dev, sq + sk + d, (2, 8, sq, d), (2, 2, sk, d), causal=causal)
+
+
+@pytest.mark.parametrize("d", [64, 80, 128, 256])
+def test_tc_kernel_reads_transposed_views_through_its_maps(dev, d):
+    """(B, S, H, D) projections viewed as (B, H, S, D) without a copy."""
+    q, k, v = _normal(dev, d, torch.bfloat16, (2, 300, 8, d),
+                      (2, 300, 2, d), (2, 300, 2, d))
+    q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    got = fa_kernel.flash_attention(q, k, v, causal=True)
+    _assert_close(got, flash_attention_ref(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=True,
+        scale=float(d) ** -0.5))
+
+
+def _map_geometry(lib, d, s, h, b, strides, cols, rows):
+    out = (ctypes.c_ulonglong * 11)()
+    lib.flash_attention_tc_map_geometry(d, s, h, b, *strides, cols, rows,
+                                        out)
+    return {"dims": tuple(out[:4]), "strides": tuple(out[4:7]),
+            "box": tuple(out[7:])}
+
+
+def test_tc_map_geometry_of_the_source(dev):
+    """The tensor maps the launch encodes: dims (D, S, H, B) innermost
+    first, the byte strides of S, H and B, boxes of cols x rows."""
+    lib = fa_kernel.LIBRARY.get()
+    # (B, S, H, D) = (2, 40, 8, 64) viewed as (B, H, S, D): element
+    # strides (S 512, H 64, B 20480)
+    assert _map_geometry(lib, 64, 40, 8, 2, (512, 64, 20480), 64, 128) == {
+        "dims": (64, 40, 8, 2), "strides": (1024, 128, 40960),
+        "box": (64, 128, 1, 1)}
+    # D 80's tail: 16-column boxes of a (2, 40, 2, 80) projection
+    assert _map_geometry(lib, 80, 40, 2, 2, (160, 80, 6400), 16, 128) == {
+        "dims": (80, 40, 2, 2), "strides": (320, 160, 12800),
+        "box": (16, 128, 1, 1)}
+    # contiguous (1, 4, 100, 128)
+    assert _map_geometry(lib, 128, 100, 4, 1, (128, 12800, 51200), 64,
+                         64) == {
+        "dims": (128, 100, 4, 1), "strides": (256, 25600, 102400),
+        "box": (64, 64, 1, 1)}
+    # a size-1 H with a 0 stride takes 16 bytes; an empty S becomes 1
+    got = _map_geometry(lib, 64, 0, 1, 3, (64, 0, 64), 64, 64)
+    assert got["dims"] == (64, 1, 1, 3)
+    assert got["strides"] == (128, 16, 128)
+
+
+@pytest.mark.parametrize("d,causal", [(64, True), (80, False),
+                                      (256, True)])
+def test_tc_kernel_rows_that_see_no_key_are_zero(dev, d, causal):
+    """Sq 600 over Sk 200 with a window of 64: rows from Sk + window - 1
+    on see no key, in a block with rows that do and in blocks of their
+    own. They come out 0; the rest hold the plain version."""
+    sq, sk, window = 600, 200, 64
+    q, k, v = _normal(dev, d + sq, torch.bfloat16, (1, 8, sq, d),
+                      (1, 2, sk, d), (1, 2, sk, d))
+    before = fa_kernel.launches["flash_attention_tc"]
+    got = fa_kernel.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize(dev)
+    assert fa_kernel.launches["flash_attention_tc"] == before + 1
+    seen = sk + window - 1
+    assert bool((got[:, :, seen:] == 0).all())
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               scale=float(d) ** -0.5)
+    _assert_close(got[:, :, :seen], want[:, :, :seen])
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_tc_rule_sends_a_non_positive_scale_to_simt(dev, scale):
+    """The ``wgmma`` kernel takes the row max before scaling; the SIMT
+    kernel takes such a scale, held to the plain version."""
+    q, k, v = _normal(dev, 3, torch.bfloat16, (1, 4, 200, 64),
+                      (1, 2, 200, 64), (1, 2, 200, 64))
+    before = dict(fa_kernel.launches)
+    got = fa_kernel.flash_attention(q, k, v, causal=True, scale=scale)
+    torch.cuda.synchronize(dev)
+    assert fa_kernel.launches["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert fa_kernel.launches["flash_attention_tc"] == \
+        before["flash_attention_tc"]
+    _assert_close(got, flash_attention_ref(q, k, v, causal=True,
+                                           scale=scale))
+
+
+def test_tc_kernel_is_deterministic(dev):
+    q, k, v = _normal(dev, 9, torch.bfloat16, (2, 16, 700, 80),
+                      (2, 16, 700, 80), (2, 16, 700, 80))
+    a = fa_kernel.flash_attention(q, k, v, causal=False)
+    b = fa_kernel.flash_attention(q, k, v, causal=False)
+    assert torch.equal(a, b)
+
+
+def test_tc_kernel_in_a_cuda_graph(dev):
+    """A graph replay holds the tensor maps (``__grid_constant__``): new
+    values copied into the captured buffers give the direct call's
+    output."""
+    shapes = ((1, 32, 1000, 64), (1, 8, 1000, 64), (1, 8, 1000, 64))
+    q, k, v = _normal(dev, 11, torch.bfloat16, *shapes)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        fa_kernel.flash_attention(q, k, v, causal=True, window=200)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa_kernel.flash_attention(q, k, v, causal=True, window=200)
+    for seed in (12, 13):
+        for t, new in zip((q, k, v), _normal(dev, seed, torch.bfloat16,
+                                             *shapes)):
+            t.copy_(new)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        assert torch.equal(out, fa_kernel.flash_attention(
+            q, k, v, causal=True, window=200))
 
 
 # ----------------------------------------------------------- decode attention
