@@ -70,7 +70,15 @@ paths:
   attention at groups 6 and 12, both in float32 at a depth that fits
   (forward against decode), then internlm2 served at full width and
   depth and command-r-plus at full width cut to the deepest that fits
-  (its reason printed), each prefill's model FLOPs over its time.
+  (its reason printed), each prefill's model FLOPs over its time;
+* the reference's own workload shapes (``config/types.py`` ``SHAPES``),
+  cut in batch only: granite-3-2b's ``prefill_32k`` (1 x 32,768 tokens),
+  ``decode_32k`` (16 rows over a 32,768-position bfloat16 cache) and
+  ``train_4k`` (1 x 4,096 tokens, the launcher's step), and
+  ``long_500k`` decode of mamba2-370m, recurrentgemma-2b and
+  h2o-danube-1.8b to position 524,287 from full rings; each cell's K2
+  or K3 against its plain version on the path's operands and timed
+  there, and the decode cells in float32 against the CPU.
 
 Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
@@ -82,7 +90,9 @@ tensor-core kernels as two rows: the bfloat16 one's in the prefills
 dense archs') and hubert's encode, the split-TF32 one's in the float32
 training steps, each beside its own timing at granite's shapes; decode
 attention's in granite's, moonshot's, the hybrid's, the VLM's and the
-two large dense archs' generate) and times, and the last line is
+two large dense archs' generate; each sum with the reference shapes'
+launches, whose cells add rows of their own) and times, and the last
+line is
 ``{"ok": true, "device": {...}}``.
 
 Usage (one CUDA device; imports nothing of JAX or of ``repro``)::
@@ -1451,8 +1461,6 @@ def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int,
     from repro_torch.kernels.decode_attention.kernel import decode_attention
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     g = _generator(dev, seed)
-    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
-           if dev.type == "cuda" else 132)
 
     def case(cache: int, lengths: List[int]) -> Dict:
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
@@ -1471,19 +1479,7 @@ def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int,
                  f"decode_attention S={cache}: bfloat16 and float32 took "
                  f"{variants}, not one call each of the tensor-core and "
                  f"the SIMT kernel")
-        # a few microseconds of device time: the kernel and SDPA are timed
-        # by graph replay (the wrappers' host work per call, which an
-        # event-timed loop would measure instead, is call_ms)
-        ms = graph_ms(lambda: decode_attention(q, k, v, lens), dev, reps)
         call_ms = time_ms(lambda: decode_attention(q, k, v, lens), dev, reps)
-        plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, lens), dev,
-                           max(reps // 10, 1))
-        mask = (torch.arange(cache, device=dev)[None, :]
-                < lens[:, None])[:, None, None, :]
-        library_ms, library_note = _library_ms(dev, reps, q[:, :, None], k,
-                                               v, timer=graph_ms,
-                                               attn_mask=mask)
-        tc = dec.takes_tensor_cores(q, k, v)
         kernel_ms = {}
         if dev.type == "cuda":
             # each kernel alone, by graph replay: the split over the
@@ -1493,26 +1489,18 @@ def phase_decode_attention(dev, b: int, hq: int, hkv: int, d: int,
             gate(torch.equal(parts_out, decode_attention(q, k, v, lens)),
                  f"decode_attention S={cache}: the split and the combine "
                  f"launched apart gave another output than the call")
-            split = "decode_split_tc" if tc else "decode_split_simt"
+            split = ("decode_split_tc" if dec.takes_tensor_cores(q, k, v)
+                     else "decode_split_simt")
             kernel_ms = {
                 split: graph_ms(lambda: dec.launch_parts(
                     q, k, v, lens, dec.SPLIT, ws), dev, reps),
                 "decode_combine": graph_ms(lambda: dec.launch_parts(
                     q, k, v, lens, dec.COMBINE, ws), dev, reps)}
-        splits = dec.decode_splits(b, hkv, hq // hkv, cache, d, sms, tc)
-        valid = sum(lengths)
-        b_dec = bound(2 * hkv * d * valid * 2 + 2 * 2 * q.numel() + 4 * b,
-                      4 * d * hq * valid, H100_BF16_OPS_PER_S)
         return {"cache": cache, "lengths": lengths, "dtype": "bfloat16",
                 **close["bfloat16"], "float32": close["float32"],
-                "variants": variants, "splits": splits,
-                "blocks_with_work": dec.blocks_with_work(
-                    lengths, hkv, hq // hkv, splits, tc),
-                "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+                "variants": variants, "call_ms": call_ms,
                 "kernel_ms": kernel_ms,
-                "library_ms": library_ms,
-                "library": f"scaled_dot_product_attention with a length "
-                           f"mask ({library_note})", **b_dec}
+                **k3_yardstick(dev, q, k, v, lens, reps)}
 
     path = case(path_s, [path_len] * b)
     long = case(s, [s - step * i for i in range(b)])
@@ -2267,12 +2255,24 @@ def _phase_runner(dev, out: Dict[str, Dict]) -> Callable[..., Dict]:
     return run
 
 
+# moonshot-v1-16b-a3b's layers in lm_serve (of 48): every MoE layer has
+# the same shapes, so half the depth runs every kernel and gate of the
+# path in half the host time
+MOONSHOT_SERVE_LAYERS = 24
+
+
 def moe_serve_configs(moonshot, deepseek):
-    """The serving configs of the MoE family: moonshot at full width and
-    depth; deepseek at full width, its depth cut to 1 (with its MTP
-    block), each cut with its reason."""
+    """The serving configs of the MoE family: moonshot at full width, its
+    depth cut to ``MOONSHOT_SERVE_LAYERS``; deepseek at full width, its
+    depth cut to 1 (with its MTP block), each cut with its reason."""
     import dataclasses
-    return [(moonshot, None),
+    layers = min(MOONSHOT_SERVE_LAYERS, moonshot.n_layers)
+    cut = None if layers == moonshot.n_layers else {
+        "from": moonshot.n_layers, "to": layers,
+        "reason": "the whole smoke's time limit: at 48 layers its 528 "
+                  "decode steps took 125 s on the host, the script's "
+                  "largest phase"}
+    return [(dataclasses.replace(moonshot, n_layers=layers), cut),
             (dataclasses.replace(deepseek, n_layers=1),
              {"from": deepseek.n_layers, "to": 1,
               "reason": "one MoE layer is 11.5 B parameters: depth 1 with "
@@ -2666,11 +2666,14 @@ def _train_restart(dev) -> Dict:
             "bit_exact": True}
 
 
-def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
+def _train_full(dev, cfg, batch: int, seq: int, steps: int, models,
+                same_batch: bool = False) -> Dict:
     """(c) ``cfg`` at its published width and depth, seeded random float32
     weights and AdamW state, ``remat="dots"``, ``batch`` x ``seq`` tokens
     from ``TokenSource`` through ``make_train_step``, ``steps`` steps
-    after one warm-up, the CARAT-on pipeline fed each measured step time.
+    after one warm-up, the CARAT-on pipeline fed each measured step time
+    (with ``same_batch`` every step takes the first batch, as the
+    reference's rule that the loss falls trains on one batch).
     Per step: ms (to a synchronized end) and input wait. Then one more
     step under the profiler: the AdamW update's range (``UPDATE_RANGE``
     of ``make_train_step``) splits a step into forward+backward and the
@@ -2705,7 +2708,8 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
                            n_hosts=4, carat=CaratConfig(), models=models,
                            device=dev)
     source = TokenSource(cfg.vocab_size, seed=0)
-    batches = [make_host_batch(cfg, seq, batch, source, i)
+    batches = [make_host_batch(cfg, seq, batch, source,
+                               0 if same_batch else i)
                for i in range(steps + 2)]
     cuda = dev.type == "cuda"
     state, _ = step_fn(state, batches[0])           # warm-up
@@ -2757,7 +2761,8 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models) -> Dict:
            cfg.n_layers, "attention_blocks": blocks,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
            "dtype": "float32", "remat": "dots", "batch": batch, "seq": seq,
-           "tokens_per_step": batch * seq, "steps": steps, "init_s": init_s,
+           "tokens_per_step": batch * seq, "steps": steps,
+           "same_batch": same_batch, "init_s": init_s,
            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
            "float32_matmul_precision": torch.get_float32_matmul_precision(),
            "ms_per_step": mean_ms,
@@ -3124,8 +3129,9 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
     v's gradients through K2's op against the plain version's autograd
     on ``dev``: the backward is the plain version's, so they must be
     equal; the forward within float32's tolerance, and timed (``reps``
-    calls) beside its bound, the plain version's and SDPA's (a boolean
-    mask for a window). The bound is the least time of float32-accurate
+    calls; the kernel and SDPA by graph replay, the wrapper's host time
+    per call as ``call_ms``) beside its bound, the plain version's and
+    SDPA's (a boolean mask for a window). The bound is the least time of float32-accurate
     work: three TF32 products a multiply-add at the TF32 rate, or the
     bytes (``bound_f32_ms``: the float32 rate outside the tensor cores).
     With ``misaligned``, q, k, v and the gradient are views one element
@@ -3183,10 +3189,14 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
     else:
         lib_kw, lib_note = {"is_causal": causal}, None
     with torch.no_grad():
-        ms = time_ms(lambda: flash_attention(q, k, v, **kw), dev, reps)
+        # the kernel and SDPA by graph replay, as every kernel row; the
+        # wrapper's host work per call beside it (call_ms)
+        ms = graph_ms(lambda: flash_attention(q, k, v, **kw), dev, reps)
+        call_ms = time_ms(lambda: flash_attention(q, k, v, **kw), dev, reps)
         plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, **kw), dev,
                            reps)
-        library_ms, gqa_note = _library_ms(dev, reps, q, k, v, **lib_kw)
+        library_ms, gqa_note = _library_ms(dev, reps, q, k, v,
+                                           timer=graph_ms, **lib_kw)
     pairs = b * hq * _attn_pairs(s, s, causal, window)
     nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
     return {"phase": "flash_attention_train", "arch": arch,
@@ -3195,7 +3205,8 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
             "kernel": kernel, "launches": launches,
             "max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
             "padded_columns_zero": padded_zero,
-            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "ms": ms, "call_ms": call_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms,
             "library": "scaled_dot_product_attention ("
                        + ", ".join(n for n in (gqa_note, lib_note) if n)
                        + ")",
@@ -3462,15 +3473,664 @@ def phase_ml(dev, cache_dir: str, reps: int, duration_s: float,
             "radial": {"epochs": 80, "bar": 0.75, "nets": radial}}
 
 
+# ------------------------------------ the reference's own workload shapes
+# the cells of the reference's SHAPES (config/types.py) run on one card,
+# each named as the dry run names it, arch x shape, with the batch it is
+# cut to: only the batch is cut, never the sequence or the widths
+REFERENCE_CELLS = (("granite-3-2b", "prefill_32k", 1),
+                   ("granite-3-2b", "decode_32k", 16),
+                   ("granite-3-2b", "train_4k", 1),
+                   ("mamba2-370m", "long_500k", 1),
+                   ("recurrentgemma-2b", "long_500k", 1),
+                   ("h2o-danube-1.8b", "long_500k", 1))
+# decode steps of the serving shapes (the last at position seq_len - 1)
+# and train steps of train_4k
+SHAPE_STEPS = {"decode_32k": 8, "long_500k": 16, "train_4k": 3}
+# the rows of a decode batch start this many positions apart
+RAGGED_STEP = 37
+# the float32 card-against-CPU run of each decode shape: its layers (the
+# hybrid takes its block pattern's 3, so that a local-attention block is
+# in it), rows and steps
+SHAPE_PARITY = {"decode_32k": {"layers": 2, "batch": 2, "steps": 1},
+                "long_500k": {"layers": 2, "batch": 1, "steps": 4}}
+# decode steps of a cell run again under the profiler for the device's
+# busy time (reading a trace back costs host seconds a step)
+SHAPE_TRACE_STEPS = 2
+# query rows at each end of the prefill's K2 slice
+PREFILL_SLICE_ROWS = 128
+# the config fields a cut is read from
+_CUT_FIELDS = ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_ff",
+               "vocab_size", "sliding_window")
+
+
+def cell_name(arch: str, shape: str) -> str:
+    return f"{arch} x {shape}"
+
+
+def shape_cuts(published, cfg, shape, batch: int) -> List[Dict]:
+    """Every cut of a run from the reference's own cell, as ``{"what",
+    "reference", "run"}``: the batch and sequence against the shape of
+    that name in ``SHAPES``, then each width and depth field of ``cfg``
+    (and the head dim) against ``published``'s."""
+    from repro_torch.config.types import get_shape
+    ref = get_shape(shape.name)
+    pairs = [("batch", ref.global_batch, batch),
+             ("seq_len", ref.seq_len, shape.seq_len)]
+    pairs += [(f, getattr(published, f), getattr(cfg, f))
+              for f in _CUT_FIELDS]
+    if published.n_heads and cfg.n_heads:
+        pairs.append(("head_dim", published.resolved_head_dim,
+                      cfg.resolved_head_dim))
+    return [{"what": what, "reference": want, "run": got}
+            for what, want, got in pairs if want != got]
+
+
+def fill_cache_(cache: List[Dict], generator, lengths) -> List[Dict]:
+    """Seeded contents for a decode cache, in place: every floating
+    tensor (keys, values, SSM, RG-LRU and conv states) drawn from N(0, 1)
+    by ``generator``, layer by layer and each layer's names in sorted
+    order; every ``length`` set to ``lengths``. Returns the cache."""
+    import torch
+    for layer in cache:
+        for name in sorted(layer):
+            t = layer[name]
+            if name == "length":
+                t.copy_(torch.as_tensor(lengths, dtype=torch.int32))
+            else:
+                t.normal_(generator=generator)
+    return cache
+
+
+def cache_keeper(cache: List[Dict], steps: int) -> List[Dict]:
+    """Copies of what a run of ``steps`` decode steps changes and reads
+    again: every state tensor and length, and a layer's keys and values
+    only where some row's ring buffer fills within the steps. In a ring
+    that does not fill, each step writes the slot past its row's length,
+    which no earlier step of the run reads: a second run from the same
+    lengths writes the same values there before reading them."""
+    keep = []
+    for layer in cache:
+        lens = layer.get("length")
+        fills = (lens is not None and "k" in layer
+                 and int(lens.max()) + steps > layer["k"].shape[2])
+        keep.append({name: t.clone() for name, t in layer.items()
+                     if name not in ("k", "v") or fills})
+    return keep
+
+
+def restore_cache_(cache: List[Dict], keep: List[Dict]) -> None:
+    for layer, kept in zip(cache, keep):
+        for name, t in kept.items():
+            layer[name].copy_(t)
+
+
+def _plain_causal(q, k, v, chunk: int):
+    """The plain version of causal attention over all of q's rows, in
+    chunks of ``chunk`` rows, each against the keys it can see (the
+    whole (S, S) logits of a 32k prefill would not fit the card)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    return torch.cat([flash_attention_ref(
+        q[:, :, lo:lo + chunk], k[:, :, :lo + chunk], v[:, :, :lo + chunk],
+        causal=True, q_offset=lo) for lo in range(0, q.shape[2], chunk)],
+        dim=2)
+
+
+class _Captured:
+    """While active, wraps one attention op of ``repro_torch.models
+    .attention`` (``flash_attention`` or ``decode_attention``, which the
+    blocks look up at each call) and keeps the first call's operands and
+    output: copies where the path writes them in place later (a decode
+    cache), else the tensors themselves."""
+
+    def __init__(self, name: str, copy: bool):
+        self.name, self.copy = name, copy
+        self.args: Optional[Dict] = None
+
+    def __enter__(self) -> "_Captured":
+        from repro_torch.models import attention
+        self._mod, self._fn = attention, getattr(attention, self.name)
+
+        def wrapped(q, k, v, *args, **kw):
+            out = self._fn(q, k, v, *args, **kw)
+            if self.args is None:
+                keep = (lambda t: t.clone()) if self.copy else (lambda t: t)
+                self.args = {"q": keep(q), "k": keep(k), "v": keep(v),
+                             "out": keep(out),
+                             "lengths": (keep(kw["lengths"])
+                                         if "lengths" in kw else None)}
+            return out
+
+        setattr(attention, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        setattr(self._mod, self.name, self._fn)
+
+
+def k3_yardstick(dev, q, k, v, lengths, reps: int) -> Dict:
+    """What K3's rows measure beside their kernel, at one call's operands:
+    its ms by graph replay (a few microseconds of device time, so the
+    wrapper's host work, ``call_ms`` where a row wants it, stays out),
+    SDPA's with a length mask likewise, the plain version's by CUDA
+    events, its splits, the blocks of its split kernel with keys to read,
+    and the bound of the bytes the valid keys and the queries take."""
+    import torch
+    from repro_torch.kernels.decode_attention import kernel as dec
+    from repro_torch.kernels.decode_attention.kernel import decode_attention
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    b, hq, d = q.shape
+    hkv, s = k.shape[1], k.shape[2]
+    sms = (torch.cuda.get_device_properties(dev).multi_processor_count
+           if dev.type == "cuda" else 132)
+    tc = dec.takes_tensor_cores(q, k, v)
+    ms = graph_ms(lambda: decode_attention(q, k, v, lengths), dev, reps)
+    plain_ms = time_ms(lambda: decode_attention_ref(q, k, v, lengths), dev,
+                       max(reps // 10, 1))
+    mask = (torch.arange(s, device=dev)[None, :]
+            < lengths[:, None])[:, None, None, :]
+    library_ms, library_note = _library_ms(dev, reps, q[:, :, None], k, v,
+                                           timer=graph_ms, attn_mask=mask)
+    lens = [int(x) for x in lengths.tolist()]
+    valid = sum(lens)
+    splits = dec.decode_splits(b, hkv, hq // hkv, s, d, sms, tc)
+    return {"splits": splits, "tensor_cores": tc,
+            "blocks_with_work": dec.blocks_with_work(lens, hkv, hq // hkv,
+                                                     splits, tc),
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "library": f"scaled_dot_product_attention with a length mask "
+                       f"({library_note})",
+            **bound(k.element_size() * 2 * hkv * d * valid
+                    + 2 * q.element_size() * q.numel() + 4 * b,
+                    4 * d * hq * valid, H100_BF16_OPS_PER_S)}
+
+
+def _cell_head(cell: Dict) -> Dict:
+    published, cfg, shape = cell["published"], cell["cfg"], cell["shape"]
+    return {"cell": cell_name(published.name, shape.name),
+            "arch": published.name, "shape": shape.name,
+            "seq_len": shape.seq_len, "batch": cell["batch"],
+            "reference_batch": shape.global_batch,
+            "params": cfg.param_count(), "layers": cfg.n_layers,
+            "reduced": shape_cuts(published, cfg, shape, cell["batch"])}
+
+
+def _peak(dev) -> Optional[int]:
+    import torch
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def _prefill_cell(dev, cell: Dict, seed: int, reps: int) -> Dict:
+    """``LanguageModel.prefill`` of ``batch`` x ``seq_len`` seeded tokens
+    with seeded bfloat16 weights: a warm-up, the timed prefill (every
+    attention block one launch of K2's ``wgmma`` kernel; last-token
+    logits finite; peak bytes), one more traced for the device's busy
+    time (its idle share against that prefill's wall time) whose first
+    attention call, layer 0's K2, is kept; layer 0's K2 output against the
+    plain version on the first and the last ``PREFILL_SLICE_ROWS`` query
+    rows of the first and the last kv group's heads against every key
+    (bfloat16 ``ATOL`` and the row rule); K2 at those operands by graph
+    replay beside its bound, SDPA's time and the plain version's over
+    every row in chunks."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.models.lm import build_model
+    cfg, shape, batch = cell["cfg"], cell["shape"], cell["batch"]
+    out = _cell_head(cell)
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(_generator(dev, seed))
+    n_attn = _n_attn(model)
+    s, v = shape.seq_len, cfg.vocab_size
+    tokens = {"tokens": torch.from_numpy(
+        rng(seed).integers(0, v, size=(batch, s))).to(dev)}
+    cuda = dev.type == "cuda"
+    with torch.inference_mode():
+        model.prefill(tokens, s)                # warm-up
+        sync(dev)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _reset_attn_launches()
+        t0 = time.perf_counter()
+        logits = model.prefill(tokens, s)
+        sync(dev)
+        prefill_s = time.perf_counter() - t0
+        launches = _attn_launches()
+        peak = _peak(dev)
+        finite = (tuple(logits.shape) == (batch, v)
+                  and bool(torch.isfinite(logits).all().item()))
+        del logits
+        busy_ms = traced_s = None
+        with _Captured("flash_attention", copy=False) as cap:
+            if cuda:
+                busy_ms, traced_s, _, _ = _device_busy_ms(
+                    lambda: model.prefill(tokens, s), dev)
+            else:
+                model.prefill(tokens, s)
+    gate(finite, f"{out['cell']}: last-token logits not finite (B, V)")
+    if cuda:
+        gate(launches == {"flash_attention": n_attn,
+                          "flash_attention_tc": n_attn,
+                          "flash_attention_f32tc": 0,
+                          "decode_attention": 0},
+             f"{out['cell']}: attention launches {launches}")
+    a = cap.args
+    q, k, vv, o = a["q"], a["k"], a["v"], a["out"]
+    hkv, group = k.shape[1], q.shape[1] // k.shape[1]
+    rows = min(PREFILL_SLICE_ROWS, s)
+    kv_groups = sorted({0, hkv - 1})
+    errs = []
+    with torch.inference_mode():
+        for g in kv_groups:
+            heads = slice(g * group, (g + 1) * group)
+            for lo in sorted({0, s - rows}):
+                want = flash_attention_ref(
+                    q[:, heads, lo:lo + rows], k[:, g:g + 1],
+                    vv[:, g:g + 1], causal=True, q_offset=lo)
+                errs.append(_check_close(
+                    f"{out['cell']}: layer 0's K2, kv group {g}, rows "
+                    f"{lo}..{lo + rows - 1}", o[:, heads, lo:lo + rows],
+                    want))
+        # K2 and SDPA by graph replay at layer 0's operands; the bound of
+        # the bytes and of the pairs the causal mask keeps
+        row = {"kernel": "flash_attention",
+               "shape": [batch, q.shape[1], hkv, s, q.shape[-1]],
+               "ms": graph_ms(lambda: flash_attention(q, k, vv), dev, reps),
+               "library_ms": _library_ms(dev, reps, q, k, vv,
+                                         timer=graph_ms, is_causal=True)[0],
+               "plain_ms": time_ms(
+                   lambda: _plain_causal(q, k, vv, chunk=1024), dev, 1),
+               **bound(2 * (2 * q.numel() + k.numel() + vv.numel()),
+                       4 * q.shape[-1] * batch * q.shape[1]
+                       * _attn_pairs(s, s, True, 0), H100_BF16_OPS_PER_S)}
+    row.update(max_abs_err=max(e["max_abs_err"] for e in errs),
+               max_row_rel_err=max(e.get("max_row_rel_err", 0.0)
+                                   for e in errs),
+               launches=launches["flash_attention_tc"],
+               plain="the plain version over every row, 1024 rows a chunk "
+                     "against the keys they see",
+               checked={"kv_groups": kv_groups, "rows": rows,
+                        "row_starts": sorted({0, s - rows})})
+    out.update({
+        "prefill": {"ms": prefill_s * 1e3,
+                    "tokens_per_s": batch * s / prefill_s,
+                    "launches": launches, "peak_device_bytes": peak,
+                    "device_busy_ms": busy_ms,
+                    # against the traced prefill's own wall time
+                    "device_idle_share": (None if busy_ms is None else
+                                          1.0 - busy_ms / (traced_s * 1e3))},
+        "kernels": [row],
+        "path_launches": {"flash_attention": launches["flash_attention_tc"]}})
+    return out
+
+
+def _decode_parity(dev, cell: Dict, seed: int) -> Dict:
+    """``cell``'s arch at its width cut to ``layers`` layers, float32 (TF32
+    off), the same seeded weights and cache on the card and on the CPU:
+    ``steps`` decode steps from lengths ``seq_len - steps - RAGGED_STEP *
+    i`` at positions ``seq_len - steps`` on, both fed the CPU's greedy
+    tokens; every step's logits at ``DECODE_ATOL``. On the card each
+    attention block launches K3's SIMT split kernel (float32) once a
+    step."""
+    import dataclasses
+
+    import torch
+    from repro_torch.models.lm import build_model
+    p = cell["parity"]
+    shape, published = cell["shape"], cell["published"]
+    cfg = dataclasses.replace(cell["cfg"], n_layers=p["layers"])
+    batch, steps = p["batch"], p["steps"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    host = build_model(cfg, device=cpu, dtype=torch.float32)
+    host.init(torch.Generator().manual_seed(seed))
+    card = build_model(cfg, device=dev, dtype=torch.float32)
+    card.load_state_dict(host.state_dict())
+    start = shape.seq_len - steps
+    lengths = [start - RAGGED_STEP * i for i in range(batch)]
+    h_cache = fill_cache_(host.init_cache(batch, shape.seq_len,
+                                          dtype=torch.float32),
+                          torch.Generator().manual_seed(seed + 1), lengths)
+    c_cache = [{k: t.to(dev, copy=True) for k, t in layer.items()}
+               for layer in h_cache]
+    n_attn = _n_attn(host)
+    tokens = torch.from_numpy(rng(seed).integers(0, cfg.vocab_size,
+                                                 size=batch))
+    errs = []
+    _reset_attn_launches()
+    before = dict(_attn_kernels()[1].variants)
+    with torch.inference_mode():
+        for j in range(steps):
+            pos = torch.full((batch,), start + j, dtype=torch.int32)
+            want, h_cache = host.decode_step(tokens, h_cache, pos)
+            got, c_cache = card.decode_step(tokens.to(dev), c_cache,
+                                            pos.to(dev))
+            errs.append(_max_err(got.cpu(), want))
+            tokens = torch.argmax(want, dim=-1)
+    launches = _attn_launches()
+    variants = {n: c - before[n]
+                for n, c in _attn_kernels()[1].variants.items()}
+    what = f"{cell_name(published.name, shape.name)} float32 card vs CPU"
+    gate(max(errs) <= DECODE_ATOL, f"{what}: logits off by {max(errs)}")
+    if dev.type == "cuda":
+        gate(launches["decode_attention"] == n_attn * steps
+             and variants == {"tensor_core": 0, "simt": n_attn * steps},
+             f"{what}: K3 launches {launches}, split kernels {variants}")
+    return {"layers": cfg.n_layers, "attention_layers": n_attn,
+            "batch": batch, "steps": steps, "lengths": lengths,
+            "positions": [start, start + steps - 1], "dtype": "float32",
+            "reduced": shape_cuts(published, cfg, shape, batch),
+            "max_abs_err": max(errs), "per_step_max_abs_err": errs,
+            "atol": DECODE_ATOL, "decode_attention_launches":
+            launches["decode_attention"], "variants": variants,
+            "s": time.perf_counter() - t0}
+
+
+def _decode_cell(dev, cell: Dict, seed: int, reps: int) -> Dict:
+    """``decode_step`` through ``ServeEngine.run_steps`` with seeded
+    bfloat16 weights over a seeded bfloat16 cache of ``seq_len``
+    positions (ring buffers of the window where there is one), every
+    state drawn from the generator: ``steps`` steps at positions
+    ``seq_len - steps`` on (the last at ``seq_len - 1``), row ``i``'s
+    cache holding ``seq_len - steps - RAGGED_STEP * i`` positions (a
+    sliding window's ring full), each step's tokens the greedy pick of
+    the step before (the first step's from seeded logits). Three runs
+    from the same state (``cache_keeper``): a warm-up that keeps the
+    first K3 call's operands and output, the timed run (launches and
+    peak bytes counted from just before it), and its first
+    ``SHAPE_TRACE_STEPS`` steps traced for the device's busy time; every
+    run's tokens equal the timed run's. Gates: every step's logits
+    finite, each attention block one K3 launch a step on the tensor-core
+    split kernel, the kept K3 output against the plain version
+    (bfloat16 ``ATOL`` and the row rule), and the float32 card-vs-CPU run
+    (``_decode_parity``)."""
+    import torch
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    from repro_torch.models.lm import build_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg, shape, batch = cell["cfg"], cell["shape"], cell["batch"]
+    steps = cell["steps"]
+    out = _cell_head(cell)
+    cuda = dev.type == "cuda"
+    model = build_model(cfg, device=dev, dtype=torch.bfloat16)
+    model.init(_generator(dev, seed))
+    n_attn = _n_attn(model)
+    start = shape.seq_len - steps
+    lengths = [start - RAGGED_STEP * i for i in range(batch)]
+    cache = fill_cache_(model.init_cache(batch, shape.seq_len,
+                                         dtype=torch.bfloat16),
+                        _generator(dev, seed + 1), lengths)
+    sync(dev)
+    keep = cache_keeper(cache, steps)
+    cache_bytes = sum(t.numel() * t.element_size() for layer in cache
+                      for t in layer.values())
+    engine = ServeEngine(model, cache_len=shape.seq_len,
+                         cache_dtype=torch.bfloat16)
+    first = torch.randn((batch, cfg.vocab_size),
+                        generator=_generator(dev, seed + 2), device=dev)
+    step = model.decode_step
+
+    def run(stop: int) -> Tuple[List, List, float]:
+        """The steps from ``start`` to ``stop`` from the kept state: the
+        requests' tokens, each step's logits, seconds."""
+        restore_cache_(cache, keep)
+        reqs = [Request(prompt=[0], max_new_tokens=steps)
+                for _ in range(batch)]
+        seen: List = []
+
+        def checked(tokens, c, pos):
+            logits, c = step(tokens, c, pos)
+            seen.append(logits)
+            return logits, c
+
+        model.decode_step = checked
+        sync(dev)
+        t0 = time.perf_counter()
+        engine.run_steps(reqs, engine.prompt_rows(reqs), cache, start,
+                         stop, logits=first)
+        tokens = torch.argmax(seen[-1], dim=-1)
+        sync(dev)
+        secs = time.perf_counter() - t0
+        del model.decode_step
+        return [r.out_tokens + [int(t)] for r, t in zip(
+            reqs, tokens.tolist())], seen, secs
+
+    with torch.inference_mode():
+        with _Captured("decode_attention", copy=True) as cap:
+            warm_tokens, _, _ = run(shape.seq_len)
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        _reset_attn_launches()
+        variants_before = dict(_attn_kernels()[1].variants)
+        tokens, seen, secs = run(shape.seq_len)
+        launches = _attn_launches()
+        variants = {n: c - variants_before[n]
+                    for n, c in _attn_kernels()[1].variants.items()}
+        peak = _peak(dev)
+        finite = bool(torch.stack([torch.isfinite(x).all()
+                                   for x in seen]).all().item())
+        del seen
+        busy_ms, traced_tokens = None, None
+        n_trace = min(SHAPE_TRACE_STEPS, steps)
+        with (_traced(dev) if cuda else contextlib.nullcontext()) as prof:
+            traced_tokens, _, _ = run(start + n_trace)
+        if cuda:
+            busy_ms, heaviest = _Trace.of(prof).device(top=8)
+    what = out["cell"]
+    gate(finite, f"{what}: a decode step's logits are not finite")
+    gate(warm_tokens == tokens, f"{what}: the warm-up run's tokens differ "
+                                f"from the timed run's")
+    gate([t[:n_trace] for t in traced_tokens]
+         == [t[:n_trace] for t in tokens],
+         f"{what}: the traced steps' tokens differ from the timed run's")
+    if cuda:
+        gate(launches == {"flash_attention": 0, "flash_attention_tc": 0,
+                          "flash_attention_f32tc": 0,
+                          "decode_attention": n_attn * steps}
+             and variants == {"tensor_core": n_attn * steps, "simt": 0},
+             f"{what}: attention launches {launches}, split kernels "
+             f"{variants}")
+    ms = secs * 1e3 / steps
+    out["decode"] = {
+        "steps": steps, "positions": [start, shape.seq_len - 1],
+        "lengths": lengths, "cache_bytes": cache_bytes,
+        "ms_per_step": ms, "tokens_per_s": batch / (ms / 1e3),
+        "launches": launches, "variants": variants,
+        "peak_device_bytes": peak, "traced_steps": n_trace,
+        "device_busy_ms_per_step": (None if busy_ms is None
+                                    else busy_ms / n_trace),
+        "device_idle_share": (None if busy_ms is None
+                              else 1.0 - busy_ms / n_trace / ms),
+        "heaviest_device_ms": heaviest if busy_ms is not None else None,
+        "first_tokens": tokens[0][:4]}
+    out["kernels"] = []
+    if cap.args is not None:
+        a = cap.args
+        with torch.inference_mode():
+            close = _check_close(f"{what}: the first K3 call",
+                                 a["out"], decode_attention_ref(
+                                     a["q"], a["k"], a["v"], a["lengths"]))
+            q, k = a["q"], a["k"]
+            row = {"kernel": "decode_attention",
+                   "shape": [*q.shape[:2], *k.shape[1:]],
+                   "dtype": str(k.dtype).split(".")[-1],
+                   "lengths": a["lengths"].tolist(),
+                   **k3_yardstick(dev, q, k, a["v"], a["lengths"], reps),
+                   **close, "launches": launches["decode_attention"]}
+        out["kernels"].append(row)
+        del cap.args
+    out["path_launches"] = {"decode_attention": launches["decode_attention"]}
+    del cache, keep, model
+    _free(dev)
+    out["parity"] = _decode_parity(dev, cell, seed + 3)
+    return out
+
+
+def _train_batch_probe(dev, cfg, batch: int, seq: int) -> Dict:
+    """One step of ``_train_full``'s model, state and train step at
+    ``batch`` x ``seq`` (no pipeline, no warm-up): whether it fits the
+    card, and the peak bytes it reached, at its end or where it ran out
+    of memory."""
+    import torch
+    from repro_torch.config import (ParallelConfig, RunConfig, ShapeConfig,
+                                    TrainConfig)
+    from repro_torch.data import TokenSource, make_host_batch
+    from repro_torch.models.lm import build_model
+    from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    model.init(_generator(dev, 8))
+    run = RunConfig(arch=cfg, shape=ShapeConfig("full", seq, batch, "train"),
+                    parallel=ParallelConfig(remat="dots",
+                                            opt_state_dtype="float32"),
+                    train=TrainConfig(steps=1))
+    state = TrainState.init(model.param_tree(), AdamWConfig())
+    step_fn = make_train_step(model, run)
+    tokens = make_host_batch(cfg, seq, batch, TokenSource(cfg.vocab_size,
+                                                          seed=0), 0)
+    error = None
+    try:
+        state, _ = step_fn(state, tokens)
+        sync(dev)
+    except torch.cuda.OutOfMemoryError as e:
+        error = str(e).splitlines()[0]
+    peak = torch.cuda.max_memory_allocated(dev) if cuda else None
+    del model, state, step_fn
+    _free(dev)
+    return {"batch": batch, "seq": seq, "fits": error is None,
+            "peak_device_bytes": peak, "error": error}
+
+
+def _train_cell(dev, cell: Dict, seed: int, reps: int, models) -> Dict:
+    """The launcher's train step (``_train_full``: float32, AdamW,
+    ``remat="dots"``, the CARAT-on pipeline) at ``batch`` x ``seq_len``,
+    ``steps`` steps on one batch: losses finite and falling, the
+    reference's rule (``tests/test_train.py:73-87``); whether one step at
+    the next batch fits the card (``next_batch``); K2's split-TF32
+    kernel with its gradient at the cell's heads and length
+    (``phase_flash_attention_train``, the row); and ``steps`` steps of
+    ``parity_cfg`` at the same length on the card against the CPU
+    (``_train_parity``'s bars)."""
+    cfg, shape, batch = cell["cfg"], cell["shape"], cell["batch"]
+    out = _cell_head(cell)
+    full = _train_full(dev, cfg, batch, shape.seq_len, cell["steps"], models,
+                       same_batch=True)
+    losses = full["losses"]
+    gate(losses[-1] < losses[0], f"{out['cell']}: the loss did not fall "
+                                 f"over {cell['steps']} steps: {losses}")
+    out["train"] = full
+    _free(dev)
+    out["next_batch"] = _train_batch_probe(dev, cfg, batch + 1,
+                                           shape.seq_len)
+    k2 = phase_flash_attention_train(
+        dev, batch, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+        shape.seq_len, reps=reps, arch=cfg.name)
+    k2.update(kernel="flash_attention_f32tc",
+              compared_launches=k2.pop("launches"),
+              launches=full["launches"]["flash_attention_f32tc"])
+    out["kernels"] = [k2]
+    _free(dev)
+    pcfg = cell["parity_cfg"]
+    par = _train_parity(dev, pcfg, steps=cell["steps"], seq=shape.seq_len,
+                        batch=batch)
+    par["reduced"] = shape_cuts(cell["published"], pcfg, shape, batch)
+    out["parity"] = par
+    out["path_launches"] = {"flash_attention_f32tc":
+                            full["launches"]["flash_attention_f32tc"]
+                            + par["k2_launches_card"]}
+    return out
+
+
+def reference_cells(get_arch) -> List[Dict]:
+    """``REFERENCE_CELLS`` as the phase runs them: each arch at its
+    published width and depth, the shape of ``SHAPES``, the batch cut,
+    the steps, and the card-vs-CPU run (a decode shape's
+    ``SHAPE_PARITY``; train_4k's at ``reduced_config`` widths: at full
+    width and 2 layers the CPU's side takes ~56 s a forward and backward
+    on 8 cores, four of them a run)."""
+    from repro_torch.config import reduced_config
+    from repro_torch.config.types import get_shape
+    cells = []
+    for arch, shape, batch in REFERENCE_CELLS:
+        cfg = get_arch(arch)
+        cell = {"published": cfg, "cfg": cfg, "shape": get_shape(shape),
+                "batch": batch, "steps": SHAPE_STEPS.get(shape)}
+        if shape == "train_4k":
+            cell["parity_cfg"] = reduced_config(cfg)
+        elif shape in SHAPE_PARITY:
+            cell["parity"] = dict(SHAPE_PARITY[shape])
+            if cfg.rglru is not None:
+                cell["parity"]["layers"] = len(cfg.rglru.block_pattern)
+        cells.append(cell)
+    return cells
+
+
+def phase_reference_shapes(dev, cells: List[Dict], models, seed: int = 40,
+                           reps: int = 3) -> Dict:
+    """The reference's own workload shapes through the port's entry
+    points on ``dev``, one cell after another (``reference_cells``):
+    ``prefill`` cells by ``_prefill_cell``, ``decode`` and
+    ``long_decode`` ones by ``_decode_cell``, ``train`` ones by
+    ``_train_cell``. Each cell reports its cuts (``reduced``), times,
+    peak bytes and idle share, its kernels at the path's operands
+    (``kernels``) and its launches on the path (``path_launches``, for
+    the kernel line's sums)."""
+    t_phase = time.perf_counter()
+    out: Dict = {"phase": "reference_shapes", "cells": {}}
+    for i, cell in enumerate(cells):
+        t0 = time.perf_counter()
+        kind = cell["shape"].kind
+        if kind == "prefill":
+            res = _prefill_cell(dev, cell, seed + 10 * i, reps)
+        elif kind in ("decode", "long_decode"):
+            res = _decode_cell(dev, cell, seed + 10 * i, reps)
+        else:
+            res = _train_cell(dev, cell, seed + 10 * i, reps, models)
+        res["s"] = time.perf_counter() - t0
+        out["cells"][res["cell"]] = res
+        _free(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def shape_summary(shapes: Dict) -> Dict:
+    """Each cell's cuts, ms, tokens/s, peak bytes and idle share, its
+    kernels' ms, bound and SDPA's time, and a train cell's probe of the
+    next batch, for the end of the output."""
+    rows = {}
+    for name, c in shapes["cells"].items():
+        run = c.get("prefill") or c.get("decode") or c.get("train")
+        ms = run.get("ms", run.get("ms_per_step"))
+        idle = run.get("device_idle_share")
+        if idle is None and "profiled" in run:
+            idle = run["profiled"].get("device_idle_share")
+        rows[name] = {"reduced": c["reduced"], "ms": ms,
+                      "peak_device_bytes": run.get("peak_device_bytes"),
+                      "device_idle_share": idle,
+                      "kernels": [[k["kernel"], k["ms"], k["bound_ms"],
+                                   k["library_ms"], k["launches"]]
+                                  for k in c["kernels"]]}
+        if "next_batch" in c:
+            rows[name]["next_batch"] = c["next_batch"]
+    return rows
+
+
 def summary_line(nvidia_smi: List[str], serves: List[Dict],
-                 parity_runs: List[Dict], full_runs: List[Dict]) -> Dict:
+                 parity_runs: List[Dict], full_runs: List[Dict],
+                 shapes: Optional[Dict] = None) -> Dict:
     """What the end of the output, all that is kept of a whole run, must
     show: the card; each served arch's cache buffers at their addresses
     through generate and through its tail's replay; each arch trained on
     the card against the CPU, its worst loss and gradient errors over
     their bars and the calls of K2's backward op; each arch trained at
-    full width, its ms per step, idle share and backward op calls."""
+    full width, its ms per step, idle share and backward op calls; each
+    cell of the reference's shapes (``shape_summary``)."""
     return {"phase": "summary", "nvidia_smi": nvidia_smi,
+            "reference_shapes": shape_summary(shapes) if shapes else None,
             "cache_addresses_kept": {
                 r["arch"]: [r["generate"]["cache_addresses_kept"],
                             r["profiled"]["cache_addresses_kept"]]
@@ -3493,19 +4153,30 @@ def summary_line(nvidia_smi: List[str], serves: List[Dict],
                 for r in full_runs}}
 
 
-def kernel_line(phases: Dict[str, Dict], launches: Dict[str, int]) -> Dict:
+def kernel_line(phases: Dict[str, Dict], launches: Dict[str, int],
+                shapes: Optional[Dict] = None) -> Dict:
     """One row per kernel: ``phases[name]`` holds its comparison with the
     plain version and its times, ``launches[name]`` its launches on the
-    path that drives it."""
+    paths that drive it. Then, from the ``reference_shapes`` phase
+    (``shapes``), one row per kernel of each cell, named ``kernel
+    [arch x shape]``, with its launches on that cell's path."""
     rows = []
-    for name, (source, replaces) in KERNELS.items():
-        ph = phases[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": ph["max_abs_err"], "ms": ph["ms"],
-                     "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
-                     "bound_by": ph["bound_by"],
-                     "library_ms": ph.get("library_ms")})
+
+    def row(name: str, kernel: str, ph: Dict, n: int) -> Dict:
+        source, replaces = KERNELS[kernel]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": n,
+                "max_abs_err": ph["max_abs_err"], "ms": ph["ms"],
+                "plain_ms": ph["plain_ms"], "bound_ms": ph["bound_ms"],
+                "bound_by": ph["bound_by"],
+                "library_ms": ph.get("library_ms")}
+
+    for name in KERNELS:
+        rows.append(row(name, name, phases[name], launches[name]))
+    for cell, res in (shapes or {"cells": {}})["cells"].items():
+        for k in res["kernels"]:
+            rows.append(row(f"{k['kernel']} [{cell}]", k["kernel"], k,
+                            k["launches"]))
     return {"kernels": rows}
 
 
@@ -3625,7 +4296,7 @@ def main() -> int:
     # the MoE family: K2 at its two prefill shapes (moonshot D 128, MLA D
     # 192 with v padded) and K3 at moonshot's decode shape, the float32
     # consistency of both archs, then serving moonshot-v1-16b-a3b at full
-    # width and depth and deepseek-v3-671b at full width, depth 1
+    # width, depth 24 of 48, and deepseek-v3-671b at full width, depth 1
     moonshot = get_arch("moonshot-v1-16b-a3b")
     deepseek = get_arch("deepseek-v3-671b")
     mla = deepseek.mla
@@ -3668,6 +4339,14 @@ def main() -> int:
     # and depth and command-r-plus-104b at full width, depth cut
     dense = dense_phases(dev, get_arch, PROFILE_STEPS)
 
+    # the reference's own workload shapes (config/types.py SHAPES), batch
+    # cut only: granite-3-2b's prefill_32k, decode_32k and train_4k, and
+    # long_500k decode of the three sub-quadratic archs
+    shapes = phase_reference_shapes(dev, reference_cells(get_arch),
+                                    {"read": m_read, "write": m_write})
+    emit(shapes)
+    _free(dev)
+
     # each kernel's launches summed over the paths that drive it: K1 and
     # K1b on the CARAT runs and the training pipelines; K2's wgmma
     # kernel in the bf16 prefills (granite's, the MoE family's, the
@@ -3683,7 +4362,11 @@ def main() -> int:
         dense[f"serve_{name}"] for name in (
             "internlm2-20b", "command-r-plus-104b")]
     emit(summary_line(device["nvidia_smi"], serves, parity_runs,
-                      full_runs))
+                      full_runs, shapes))
+    # the reference shapes' launches, in each kernel's sum
+    by_shapes = {name: sum(c["path_launches"].get(name, 0)
+                           for c in shapes["cells"].values())
+                 for name in KERNELS}
     line = kernel_line(
         {"gbdt_logits": logits_small, "gbdt_grid_logits": grid,
          "flash_attention": fa,
@@ -3693,13 +4376,15 @@ def main() -> int:
          for name in gbdt_launches} | {
          "flash_attention": sum(
              r["prefill"]["launches"]["flash_attention_tc"] for r in serves)
-         + family["encode"]["launches"]["flash_attention_tc"],
+         + family["encode"]["launches"]["flash_attention_tc"]
+         + by_shapes["flash_attention"],
          "flash_attention_f32tc": sum(r["flash_attention_f32tc"]
                                       for r in train_runs)
-         + sum(r["k2_launches_card"] for r in parity_runs),
+         + sum(r["k2_launches_card"] for r in parity_runs)
+         + by_shapes["flash_attention_f32tc"],
          "decode_attention": sum(
              r["generate"]["launches"]["decode_attention"]
-             for r in serves)})
+             for r in serves) + by_shapes["decode_attention"]}, shapes)
     for row in line["kernels"]:
         gate(row["launches"] > 0, f"{row['name']}: no launch on its path")
     emit(line)

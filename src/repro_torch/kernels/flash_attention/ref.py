@@ -46,7 +46,10 @@ def flash_attention_ref(
     causal: bool = True,
     window: int = 0,
     scale: Optional[float] = None,
+    q_offset: int = 0,
 ) -> torch.Tensor:
+    """``q_offset`` places the query rows at absolute positions from it
+    on (a slice of a longer sequence's rows); keys count from 0."""
     b, hq, sq, d = q.shape
     hkv = k.shape[1]
     group = hq // hkv
@@ -55,7 +58,7 @@ def flash_attention_ref(
     vx = v.repeat_interleave(group, dim=1).float()
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
     mask = attention_mask(sq, k.shape[2], causal=causal, window=window,
-                          device=q.device)
+                          q_offset=q_offset, device=q.device)
     logits = torch.where(mask[None, None], logits,
                          torch.tensor(NEG_INF, device=q.device))
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))

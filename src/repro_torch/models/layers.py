@@ -10,6 +10,7 @@ redistribution with them.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping, Optional
 
 import torch
@@ -128,12 +129,32 @@ def lm_logits(params: Mapping, x: torch.Tensor) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------- RoPE
+def rope_freqs(dim: int, theta: float, device) -> torch.Tensor:
+    """The (dim/2,) rotary frequencies ``1 / theta ** (2i / dim)`` in
+    ``F32``, kept on ``device`` (once per dim, theta, type and device).
+    The exponents are rounded to float32 as the reference rounds them;
+    the power and the reciprocal are taken in float64 on the host and
+    rounded once, which is what XLA's constant folding gives the
+    reference's compiled model bit for bit. A float32 ``pow`` (the
+    reference run op by op, torch's on the host or the card's) is an
+    ulp off for some ``i``, and an angle at position p then moves by p
+    such ulps: 0.03 rad at position 524,287."""
+    return _rope_freqs(dim, float(theta), F32, torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_freqs(dim: int, theta: float, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):
+        exps = (torch.arange(0, dim, 2, dtype=dtype) / dim).double()
+        return (1.0 / (theta ** exps)).to(dtype).to(device)
+
+
 def rope_angles(positions: torch.Tensor, dim: int,
                 theta: float) -> torch.Tensor:
     """(..., dim/2) rotary angles for absolute positions."""
-    exps = torch.arange(0, dim, 2, dtype=F32, device=positions.device) / dim
-    freqs = 1.0 / (theta ** exps)
-    return positions.to(F32)[..., None] * freqs
+    return positions.to(F32)[..., None] * rope_freqs(dim, theta,
+                                                     positions.device)
 
 
 def apply_rope(x: torch.Tensor, positions: torch.Tensor,

@@ -2,6 +2,7 @@
 the wrappers running their plain versions. It checks the script's paths,
 shapes and checks; only a run on the card can show that the kernels
 build and agree with the plain versions there."""
+import dataclasses
 import json
 import os
 import shutil
@@ -981,3 +982,21 @@ def test_lm_serve_tail_replay_of_every_step_on_cpu():
     assert prof["decode_steps"] == 16
     assert prof["same_tokens"] and prof["same_logits"]
     assert gen["cache_addresses_kept"] and prof["cache_addresses_kept"]
+
+
+def test_moe_serve_configs_cut_only_moonshots_depth():
+    """lm_serve's MoE configs: moonshot at full width and 24 of its 48
+    layers, deepseek at full width and depth 1, each cut recorded; a
+    config already that shallow is served uncut."""
+    moonshot = get_arch("moonshot-v1-16b-a3b")
+    deepseek = get_arch("deepseek-v3-671b")
+    (m, m_cut), (d, d_cut) = chip_smoke.moe_serve_configs(moonshot,
+                                                          deepseek)
+    assert m.n_layers == chip_smoke.MOONSHOT_SERVE_LAYERS == 24
+    assert m == dataclasses.replace(moonshot, n_layers=24)
+    assert (m_cut["from"], m_cut["to"]) == (48, 24) and m_cut["reason"]
+    assert d == dataclasses.replace(deepseek, n_layers=1)
+    assert (d_cut["from"], d_cut["to"]) == (deepseek.n_layers, 1)
+    small = reduced_config(moonshot)
+    ((s, s_cut), _) = chip_smoke.moe_serve_configs(small, deepseek)
+    assert s == small and s_cut is None

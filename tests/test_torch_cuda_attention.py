@@ -964,3 +964,103 @@ def test_new_families_on_cuda(dev, name, depth):
     out = [[r.out_tokens for r in ServeEngine(m, cache_len=64).generate(
         [Request(p, n) for p, n in reqs])] for m in (cpu, model)]
     assert out[0] == out[1]
+
+
+# ------------------------------------ the reference's own workload shapes
+def test_tc_kernel_at_prefill_32k(dev):
+    """granite-3-2b's prefill_32k at one row: GQA 32/8, D 64, S 32,768,
+    causal. The first and the last 128 query rows of the first and the
+    last kv group's heads against all 32,768 keys, at the bfloat16 bar
+    and the row rule."""
+    s, hq, hkv, d, rows = 32768, 32, 8, 64, 128
+    q, k, v = _normal(dev, 70, torch.bfloat16, (1, hq, s, d),
+                      (1, hkv, s, d), (1, hkv, s, d))
+    before = fa_kernel.launches["flash_attention_tc"]
+    got = fa_kernel.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize(dev)
+    assert fa_kernel.launches["flash_attention_tc"] == before + 1
+    group = hq // hkv
+    for g in (0, hkv - 1):
+        heads = slice(g * group, (g + 1) * group)
+        for lo in (0, s - rows):
+            _assert_close(got[:, heads, lo:lo + rows], flash_attention_ref(
+                q[:, heads, lo:lo + rows], k[:, g:g + 1], v[:, g:g + 1],
+                causal=True, q_offset=lo))
+
+
+@pytest.mark.parametrize("b,hq,hkv,s,d,lengths,splits", [
+    # granite-3-2b's decode_32k at 16 rows: ragged lengths over a 32k cache
+    (16, 32, 8, 32768, 64, [32760 - 37 * i for i in range(16)], 2),
+    # h2o-danube-1.8b's long_500k: its full 4096-slot ring, D 80, group 4
+    (1, 32, 8, 4096, 80, [4096], 33),
+    # recurrentgemma-2b's long_500k: its full 2048-slot ring, D 256,
+    # group 10
+    (1, 10, 1, 2048, 256, [2048], 64)],
+    ids=["decode_32k", "danube_long_500k", "recurrentgemma_long_500k"])
+def test_decode_attention_at_the_reference_shapes(dev, b, hq, hkv, s, d,
+                                                  lengths, splits):
+    """K3 at the reference's decode shapes, on the tensor-core split
+    kernel at the split counts the rule gives an H100's 132 SMs."""
+    if torch.cuda.get_device_properties(dev).multi_processor_count == 132:
+        assert _splits(dev, b, hq, hkv, s, d) == splits
+    q, k, v = _normal(dev, 71 + d, torch.bfloat16, (b, hq, d),
+                      (b, hkv, s, d), (b, hkv, s, d))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    got, taken = _call(dev, q, k, v, lens)
+    assert taken == "tensor_core"
+    _assert_close(got, decode_attention_ref(q, k, v, lengths=lens))
+
+
+@pytest.mark.parametrize("d", [16, 64, 80, 128, 256])
+def test_rope_angles_on_the_card_are_the_hosts(dev, d):
+    """The rotary angles at the positions the reference's shapes reach
+    are the host's bit for bit (the compiled reference's, which
+    ``tests/test_torch_shapes.py`` checks on the CPU), and the rotation
+    within float32's rounding of the host's. Computed on the card in
+    float32, some frequencies came out an ulp off, and the angle at
+    position 524,287 moved by 524,287 such ulps."""
+    from repro_torch.models import layers
+    pos = torch.tensor([[0, 100, 4095, 32767, 524271, 524287]],
+                       dtype=torch.int32)
+    host = layers.rope_angles(pos, d, 10000.0)
+    assert torch.equal(layers.rope_angles(pos.to(dev), d, 10000.0).cpu(),
+                       host)
+    (x,) = _normal(dev, 72 + d, torch.float32, (1, 4, 6, d))
+    got = layers.apply_rope(x, pos.to(dev), 10000.0).cpu()
+    assert _max_err(got, layers.apply_rope(x.cpu(), pos, 10000.0)) <= 1e-6
+
+
+def test_decode_at_long_positions_matches_the_cpu(dev):
+    """Reduced h2o-danube-1.8b at D 80 in float32, the same seeded weights
+    and full ring of 8 on the card and on the CPU: 4 steps to position
+    524,287, each step's logits within the decode tests' 5e-4 (with the
+    frequencies computed on the card, danube's full-width logits were
+    0.024 off the CPU's at 524,284)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(reduced_config(get_arch("h2o-danube-1.8b")),
+                              head_dim=80)
+    cpu = build_model(cfg, device="cpu", dtype=torch.float32)
+    cpu.init(torch.Generator().manual_seed(3))
+    model = build_model(cfg, device=dev, dtype=torch.float32)
+    model.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(4)
+    start = 524284
+    cache = cpu.init_cache(2, 64, dtype=torch.float32)
+    for layer in cache:
+        for name, t in layer.items():
+            if name == "length":
+                t.fill_(start)
+            else:
+                t.normal_(generator=g)
+    card = [{k: t.to(dev) for k, t in layer.items()} for layer in cache]
+    assert card[0]["k"].shape[2] == cfg.sliding_window
+    tokens = torch.tensor([5, 77])
+    before = dec_kernel.launches["decode_attention"]
+    with torch.inference_mode():
+        for j in range(4):
+            pos = torch.full((2,), start + j, dtype=torch.int32)
+            want, cache = cpu.decode_step(tokens, cache, pos)
+            got, card = model.decode_step(tokens.to(dev), card, pos.to(dev))
+            assert _max_err(got.cpu(), want) <= 5e-4
+            tokens = want.argmax(-1)
+    assert dec_kernel.launches["decode_attention"] == before + 4 * 2
