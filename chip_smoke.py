@@ -74,11 +74,18 @@ paths:
 * the reference's own workload shapes (``config/types.py`` ``SHAPES``),
   cut in batch only: granite-3-2b's ``prefill_32k`` (1 x 32,768 tokens),
   ``decode_32k`` (16 rows over a 32,768-position bfloat16 cache) and
-  ``train_4k`` (1 x 4,096 tokens, the launcher's step), and
-  ``long_500k`` decode of mamba2-370m, recurrentgemma-2b and
+  ``train_4k`` (the launcher's step in the reference's training
+  configuration: bfloat16 weights, ``parallel_for``'s remat, microbatches
+  and moment dtype, at the largest batch of 4,096-token rows one step
+  fits), and ``long_500k`` decode of mamba2-370m, recurrentgemma-2b and
   h2o-danube-1.8b to position 524,287 from full rings; each cell's K2
   or K3 against its plain version on the path's operands and timed
-  there, and the decode cells in float32 against the CPU.
+  there, and the decode cells in float32 against the CPU;
+* the reference's training configuration beyond that cell:
+  moonshot-v1-16b-a3b at full width, cut in depth only, 1 x 4,096
+  tokens (the MoE family's first full-width training), and one bfloat16
+  step of every reduced family (and command-r-plus-104b at its XXL
+  settings) on the card against the CPU, held to a float64 gradient.
 
 Each phase prints one JSON line and any failed check ends the run with a
 non-zero exit; the line before the last lists every kernel with its
@@ -87,9 +94,10 @@ runs' and the first process run's, its workers' ``gbdt_logits`` calls
 included, and the training pipelines'; flash attention's two
 tensor-core kernels as two rows: the bfloat16 one's in the prefills
 (granite's, the MoE family's, the hybrid's, the VLM's and the two large
-dense archs') and hubert's encode, the split-TF32 one's in the float32
-training steps, each beside its own timing at granite's shapes; decode
-attention's in granite's, moonshot's, the hybrid's, the VLM's and the
+dense archs'), hubert's encode and the bfloat16 training steps, the
+split-TF32 one's in the float32 training steps, each beside its own
+timing at granite's shapes; decode attention's in granite's,
+moonshot's, the hybrid's, the VLM's and the
 two large dense archs' generate; each sum with the reference shapes'
 launches, whose cells add rows of their own) and times, and the last
 line is
@@ -106,6 +114,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import dataclasses
 import hashlib
 import json
 import os
@@ -117,7 +126,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 
@@ -1356,19 +1365,27 @@ def _k2_one(kernel: str) -> Dict[str, int]:
 
 def _library_ms(dev, reps: int, q, k, v, timer=time_ms, **kw):
     """One PyTorch call computing the same attention, timed only (by
-    ``timer``): ``scaled_dot_product_attention`` with GQA (K/V repeated
-    first where this torch lacks ``enable_gqa``)."""
+    ``timer``): ``_sdpa_gqa``, and which of its forms this torch took."""
     import torch.nn.functional as F
     try:
         F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
-        fn, note = (lambda: F.scaled_dot_product_attention(
-            q, k, v, enable_gqa=True, **kw)), "enable_gqa"
+        note = "enable_gqa"
+    except TypeError:
+        note = "K/V repeated first"
+    return timer(lambda: _sdpa_gqa(q, k, v, **kw), dev, reps), note
+
+
+def _sdpa_gqa(q, k, v, **kw):
+    """``scaled_dot_product_attention`` over GQA heads (K/V repeated
+    first where this torch lacks ``enable_gqa``)."""
+    import torch.nn.functional as F
+    try:
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True,
+                                              **kw)
     except TypeError:
         g = q.shape[1] // k.shape[1]
-        kx, vx = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
-        fn, note = (lambda: F.scaled_dot_product_attention(
-            q, kx, vx, **kw)), "K/V repeated first"
-    return timer(fn, dev, reps), note
+        return F.scaled_dot_product_attention(
+            q, k.repeat_interleave(g, 1), v.repeat_interleave(g, 1), **kw)
 
 
 def phase_flash_attention(dev, b: int, s: int, hq: int, hkv: int, d: int,
@@ -1537,17 +1554,25 @@ class _Dispatches:
     each call) and keeps each call's assignment and dropped counts as
     device scalars (read once, at the end) and, with ``keep_states``,
     its integer state, its experts (``top_i``) and its router's
-    probabilities (``moe.route``, wrapped likewise) on the host."""
+    probabilities (``moe.route``, wrapped likewise) on the host. With
+    ``loads``, also per call on the device: each group's assignments
+    to each expert, and of the router (``routes``) the spread of its
+    logits over the experts and how alike the tokens it routes are
+    (:meth:`load_stats`)."""
 
-    def __init__(self, keep_states: bool = False):
-        self.keep_states = keep_states
+    def __init__(self, keep_states: bool = False, loads: bool = False):
+        self.keep_states, self.keep_loads = keep_states, loads
         self.counts: List = []
         self.states: List = []
         self.experts: List = []
         self.probs: List = []
         self.capacities: List[int] = []
+        self.caps: List[int] = []
+        self.loads: List = []
+        self.routes: List = []
 
     def __enter__(self) -> "_Dispatches":
+        import torch
         from repro_torch.models import moe
         self._moe, self._dispatch, self._route = moe, moe.dispatch, moe.route
 
@@ -1556,6 +1581,13 @@ class _Dispatches:
             self.counts.append((state.keep.numel(), (~state.keep).sum()))
             if cap not in self.capacities:
                 self.capacities.append(cap)
+            if self.keep_loads:
+                flat = top_i.reshape(top_i.shape[0], -1)
+                self.caps.append(cap)
+                self.loads.append(torch.zeros(
+                    flat.shape[0], e, dtype=torch.int64,
+                    device=flat.device).scatter_add_(
+                        1, flat.long(), torch.ones_like(flat.long())))
             if self.keep_states:
                 self.states.append([t.cpu() for t in state])
                 self.experts.append(top_i.cpu())
@@ -1563,11 +1595,22 @@ class _Dispatches:
 
         def routed(params, cfg, x):
             probs, top_p, top_i = self._route(params, cfg, x)
-            self.probs.append(probs.detach().cpu())
+            if self.keep_states:
+                self.probs.append(probs.detach().cpu())
+            if self.keep_loads:
+                with torch.no_grad():
+                    # the logits less their token's log-sum-exp: the same
+                    # spread over the experts
+                    spread = probs.log().std(-1).mean()
+                    # the mean cosine of every pair of a row's tokens
+                    # (each with itself included)
+                    unit = torch.nn.functional.normalize(x.float(), dim=-1)
+                    alike = unit.mean(1).pow(2).sum(-1).mean()
+                self.routes.append(torch.stack([spread, alike]))
             return probs, top_p, top_i
 
         moe.dispatch = recorded
-        if self.keep_states:
+        if self.keep_states or self.keep_loads:
             moe.route = routed
         return self
 
@@ -1579,6 +1622,31 @@ class _Dispatches:
 
     def dropped(self) -> int:
         return int(sum(int(d.item()) for _, d in self.counts))
+
+    def load_stats(self, layers: int) -> Dict:
+        """What ``loads`` recorded: per call, the dropped assignments
+        counted plainly from the loads (each group's assignments to an
+        expert past its capacity), the largest load over the capacity,
+        the router's logit spread and its tokens' mean pairwise cosine;
+        per layer, those of the first ``layers`` calls (the first
+        forward, layer by layer); gated: the plain count equals the
+        dispatch's own, call by call."""
+        dropped = [int(d.item()) for _, d in self.counts]
+        plain = [int((ld - cap).clamp(min=0).sum().item())
+                 for ld, cap in zip(self.loads, self.caps)]
+        gate(plain == dropped, f"dispatch drops {dropped} against the "
+                               f"plain count from the loads {plain}")
+        routes = [r.tolist() for r in self.routes]
+        rows = [{"dropped_share": d / n, "largest_load_over_capacity":
+                 int(ld.max().item()) / cap, "logit_spread": r[0],
+                 "tokens_mean_cosine": r[1]}
+                for (n, _), d, ld, cap, r in zip(
+                    self.counts, dropped, self.loads, self.caps, routes)]
+        return {"calls": len(rows), "plain_dropped": sum(plain),
+                "first_forward_by_layer": rows[:layers],
+                "histogram_first_call": sorted(
+                    self.loads[0].sum(0).tolist(), reverse=True)
+                if self.loads else []}
 
     def difference(self, other: "_Dispatches") -> Optional[Dict]:
         """Where ``other``'s dispatches first part from these (both kept
@@ -2194,8 +2262,6 @@ def phase_moe_consistency(dev, moonshot, deepseek, depth: int, batch: int,
     decode; (c) ``deepseek``'s MoE block at full width, its forward
     against one token at a time; (d) the reduced configs of both on the
     card against the CPU."""
-    import dataclasses
-
     import torch
     from repro_torch.config import reduced_config
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2265,7 +2331,6 @@ def moe_serve_configs(moonshot, deepseek):
     """The serving configs of the MoE family: moonshot at full width, its
     depth cut to ``MOONSHOT_SERVE_LAYERS``; deepseek at full width, its
     depth cut to 1 (with its MTP block), each cut with its reason."""
-    import dataclasses
     layers = min(MOONSHOT_SERVE_LAYERS, moonshot.n_layers)
     cut = None if layers == moonshot.n_layers else {
         "from": moonshot.n_layers, "to": layers,
@@ -2426,20 +2491,24 @@ SERVE_WEIGHT_BUDGET = 72e9
 def _param_bytes(cfg, dtype_bytes: int) -> Dict[str, float]:
     """Bytes of ``cfg``'s weights outside the layers (embedding, final
     norm, head) and of one layer, at ``dtype_bytes`` a parameter."""
-    import dataclasses
     zero = dataclasses.replace(cfg, n_layers=0).param_count()
     one = dataclasses.replace(cfg, n_layers=1).param_count() - zero
     return {"outside_layers": zero * dtype_bytes, "layer": one * dtype_bytes,
             "largest": cfg.vocab_size * cfg.d_model * dtype_bytes}
 
 
-def depth_that_fits(cfg, dtype_bytes: int, budget: float) -> Dict:
-    """The deepest cut of ``cfg`` whose weights, with the init's largest
-    transient (the largest weight drawn in float32, then cast to the
-    model's dtype), fit ``budget`` bytes; with its reason."""
+def depth_that_fits(cfg, dtype_bytes: int, budget: float,
+                    init_bytes: Optional[int] = None) -> Dict:
+    """The deepest cut of ``cfg`` whose weights (``dtype_bytes`` a
+    parameter: the weights alone, or the weights with their training
+    state), with the init's largest transient (the largest weight drawn
+    in float32, then cast to the weights' ``init_bytes``, by default
+    ``dtype_bytes``), fit ``budget`` bytes; with its reason."""
     pb = _param_bytes(cfg, dtype_bytes)
-    transient = pb["largest"] // dtype_bytes * 4 + (
-        pb["largest"] if dtype_bytes != 4 else 0)
+    init_bytes = dtype_bytes if init_bytes is None else init_bytes
+    elements = pb["largest"] // dtype_bytes
+    transient = elements * 4 + (elements * init_bytes
+                                if init_bytes != 4 else 0)
     depth = int((budget - transient - pb["outside_layers"]) // pb["layer"])
     depth = max(1, min(depth, cfg.n_layers))
     return {"from": cfg.n_layers, "to": depth,
@@ -2464,8 +2533,6 @@ def dense_phases(dev, get_arch, profile_steps: int) -> Dict[str, Dict]:
     with its reason), each with its prefill's model FLOPs
     (``roofline/model_flops.py``) over its time as a share of the bf16
     peak. Returns the phases by name for the kernel line."""
-    import dataclasses
-
     from repro_torch.config.types import ShapeConfig
     from repro_torch.roofline.model_flops import model_flops
     intern = get_arch("internlm2-20b")
@@ -2666,10 +2733,41 @@ def _train_restart(dev) -> Dict:
             "bit_exact": True}
 
 
+class Training(NamedTuple):
+    """What a train run takes besides its arch and shape: the weights'
+    dtype, the ``ParallelConfig`` (remat, microbatches, moment dtype) and
+    the ``TrainConfig`` (its ``steps`` is the run's own)."""
+    dtype: Any
+    parallel: Any
+    train: Any
+
+
+def float32_training() -> Training:
+    """``lm_train``'s full-width run: float32 weights and moments,
+    ``remat="dots"``, the default warm-up."""
+    import torch
+    from repro_torch.config import ParallelConfig, TrainConfig
+    return Training(torch.float32, ParallelConfig(remat="dots",
+                                                  opt_state_dtype="float32"),
+                    TrainConfig())
+
+
+def reference_training(parallel) -> Training:
+    """The reference's training configuration with ``parallel``
+    (``parallel_for``'s remat, microbatches and moment dtype): bfloat16
+    weights (the float32 specs in float32) and no warm-up of the learning
+    rate (``warmup_steps=0``: three bfloat16 steps under the default 20
+    warm-up steps raise the loss, ``tests/test_torch_train_bf16.py``)."""
+    import torch
+    from repro_torch.config import TrainConfig
+    return Training(torch.bfloat16, parallel, TrainConfig(warmup_steps=0))
+
+
 def _train_full(dev, cfg, batch: int, seq: int, steps: int, models,
-                same_batch: bool = False) -> Dict:
-    """(c) ``cfg`` at its published width and depth, seeded random float32
-    weights and AdamW state, ``remat="dots"``, ``batch`` x ``seq`` tokens
+                training: Training, same_batch: bool = False) -> Dict:
+    """(c) ``cfg`` at its published width and depth, seeded random weights
+    and AdamW state as ``training`` gives them (``float32_training``,
+    ``reference_training``), ``batch`` x ``seq`` tokens
     from ``TokenSource`` through ``make_train_step``, ``steps`` steps
     after one warm-up, the CARAT-on pipeline fed each measured step time
     (with ``same_batch`` every step takes the first batch, as the
@@ -2685,22 +2783,23 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models,
     (none for an SSM), K1 once per scorer call, one update range in the
     trace."""
     import torch
-    from repro_torch.config import (CaratConfig, DataConfig, ParallelConfig,
-                                    RunConfig, ShapeConfig, TrainConfig)
+    from repro_torch.config import (CaratConfig, DataConfig, RunConfig,
+                                    ShapeConfig)
     from repro_torch.data import PFSDataPipeline, TokenSource, make_host_batch
     from repro_torch.kernels.flash_attention import kernel as fa_kernel
     from repro_torch.models.lm import build_model
     from repro_torch.train import AdamWConfig, TrainState, make_train_step
-    from repro_torch.train.step import UPDATE_RANGE
+    from repro_torch.train.step import _STATE_DTYPES, UPDATE_RANGE
     t0 = time.perf_counter()
-    model = build_model(cfg, device=dev, dtype=torch.float32)
+    dtype, parallel = training.dtype, training.parallel
+    model = build_model(cfg, device=dev, dtype=dtype)
     model.init(_generator(dev, 8))
     shape = ShapeConfig("full", seq, batch, "train")
-    run = RunConfig(arch=cfg, shape=shape,
-                    parallel=ParallelConfig(remat="dots",
-                                            opt_state_dtype="float32"),
-                    train=TrainConfig(steps=steps + 2))
-    state = TrainState.init(model.param_tree(), AdamWConfig())
+    run = RunConfig(arch=cfg, shape=shape, parallel=parallel,
+                    train=dataclasses.replace(training.train,
+                                              steps=steps + 2))
+    state = TrainState.init(model.param_tree(), AdamWConfig(
+        state_dtype=_STATE_DTYPES[parallel.opt_state_dtype]))
     step_fn = make_train_step(model, run)
     sync(dev)
     init_s = time.perf_counter() - t0
@@ -2732,11 +2831,18 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models,
     metrics = torch.stack(metrics).cpu().numpy()
     gate(bool(np.isfinite(metrics).all()), "a full-width loss or grad "
                                            "norm is not finite")
-    blocks = _attn_blocks(model)
+    blocks = _attn_blocks(model) * parallel.microbatches
+    forwards = k2_forward_runs(model, parallel.remat) * parallel.microbatches
     if cuda:
-        want = {"flash_attention": blocks * steps,
-                "flash_attention_tc": 0,
-                "flash_attention_f32tc": blocks * steps, "decode_attention": 0,
+        # bfloat16 at a head dim of 16s: every forward launch on the
+        # wgmma kernel (once more per block in backward under "full");
+        # float32 on the split-TF32 kernel
+        bf16 = dtype == torch.bfloat16
+        tc = bf16 and k2_head_dim(cfg) % 16 == 0
+        want = {"flash_attention": forwards * steps,
+                "flash_attention_tc": forwards * steps if tc else 0,
+                "flash_attention_f32tc": 0 if bf16 else forwards * steps,
+                "decode_attention": 0,
                 "gbdt_logits": _scorer_calls(pipe), "gbdt_grid_logits": 0}
         gate(launches == want, f"{cfg.name} full-width launches "
                                f"{launches}, expected {want}")
@@ -2759,8 +2865,13 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models,
          f"the traced step's update range: {adamw_ms}")
     out = {"arch": cfg.name, "params": cfg.param_count(), "layers":
            cfg.n_layers, "attention_blocks": blocks,
+           "k2_forward_runs_per_step": forwards,
            "d_model": cfg.d_model, "vocab": cfg.vocab_size,
-           "dtype": "float32", "remat": "dots", "batch": batch, "seq": seq,
+           "dtype": str(dtype).split(".")[-1], "remat": parallel.remat,
+           "microbatches": parallel.microbatches,
+           "opt_state_dtype": parallel.opt_state_dtype,
+           "warmup_steps": run.train.warmup_steps,
+           "batch": batch, "seq": seq,
            "tokens_per_step": batch * seq, "steps": steps,
            "same_batch": same_batch, "init_s": init_s,
            "tf32_matmul": torch.backends.cuda.matmul.allow_tf32,
@@ -2802,25 +2913,75 @@ def _train_full(dev, cfg, batch: int, seq: int, steps: int, models,
     return out
 
 
+@contextlib.contextmanager
+def float64_path():
+    """The model's float32 casts on the training path widened to
+    float64 while active (the norms and rope, the router, the SSM and
+    RG-LRU scans, attention's plain version with a float32-rounded
+    ``d ** -0.5``, the cross-entropy): a float64 model then computes its
+    loss and gradients in float64 throughout."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import (NEG_INF,
+                                                          attention_mask,
+                                                          default_scale)
+    from repro_torch.models import attention, layers, lm, moe, rglru, ssm
+
+    def attention64(q, k, v, causal=True, window=0, scale=None):
+        group = q.shape[1] // k.shape[1]
+        scale = (scale if scale is not None
+                 else default_scale(q.shape[-1], torch.float32))
+        kx = k.repeat_interleave(group, dim=1)
+        vx = v.repeat_interleave(group, dim=1)
+        logits = torch.einsum("bhqd,bhkd->bhqk", q, kx) * scale
+        mask = attention_mask(q.shape[2], k.shape[2], causal=causal,
+                              window=window, device=q.device)
+        logits = torch.where(mask[None, None], logits,
+                             torch.tensor(NEG_INF, dtype=q.dtype))
+        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1),
+                            vx)
+
+    def xent64(logits, labels):
+        lp = torch.log_softmax(logits, dim=-1)
+        return -torch.take_along_dim(lp, labels.long()[..., None],
+                                     dim=-1).mean()
+
+    saved = [(mod, "F32", mod.F32) for mod in (layers, moe, rglru, ssm)]
+    saved += [(lm, "_xent", lm._xent),
+              (attention, "flash_attention", attention.flash_attention)]
+    for mod, name, _ in saved[:4]:
+        setattr(mod, name, torch.float64)
+    lm._xent, attention.flash_attention = xent64, attention64
+    try:
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
 class _Updates:
     """While active, records what every AdamW update of the train step
     receives (it wraps ``repro_torch.train.step.adamw_update``, which the
     step looks up at each call): the gradients on the host, the learning
-    rate, the optimizer's config and the clip. :meth:`replay` runs those
-    updates with the CPU's AdamW; :meth:`slack` bounds what the
-    gradients' bars can move them."""
+    rate, the optimizer's config and the clip, and (``before``) the
+    parameters it starts from. :meth:`replay` runs those updates with
+    the CPU's AdamW; :meth:`slack` bounds what the gradients' bars can
+    move them."""
 
     def __init__(self):
         self.calls: List = []
+        self.before: List = []
 
     def __enter__(self) -> "_Updates":
         import torch
         from repro_torch.train import step as step_mod
+        from repro_torch.utils.tree import tree_leaves
         self._mod, self._update = step_mod, step_mod.adamw_update
 
         def recorded(params, grads, state, lr, cfg, grad_clip=0.0):
             self.calls.append(([g.detach().cpu() for g in grads],
                                torch.as_tensor(lr).cpu(), cfg, grad_clip))
+            self.before.append([p.detach().cpu().clone()
+                                for p in tree_leaves(params)])
             return self._update(params, grads, state, lr, cfg,
                                 grad_clip=grad_clip)
 
@@ -2833,10 +2994,11 @@ class _Updates:
     def replay(self, params: List) -> List:
         """Copies of the CPU tensors ``params`` after the recorded updates
         (the recorded gradients, learning rates, config and clip) by the
-        CPU's AdamW from a fresh state."""
-        from repro_torch.train import AdamWConfig, TrainState
+        CPU's AdamW from a fresh state of the recorded moment dtype."""
+        from repro_torch.train import TrainState
         from repro_torch.train.optimizer import adamw_update
-        state = TrainState.init([p.clone() for p in params], AdamWConfig())
+        state = TrainState.init([p.clone() for p in params],
+                                self.calls[0][2])
         for grads, lr, cfg, clip in self.calls:
             state["params"], state["opt"] = adamw_update(
                 state["params"], grads, state["opt"], lr, cfg,
@@ -2910,6 +3072,23 @@ def _attn_blocks(model) -> int:
     return _n_attn(model) + (model.mtp is not None)
 
 
+def k2_head_dim(cfg) -> int:
+    """The head dim K2 sees: MLA's query/key dim, else the arch's; 0
+    for an arch without attention heads (the SSM)."""
+    if cfg.mla is not None:
+        return cfg.mla.qk_head_dim
+    return cfg.resolved_head_dim if cfg.n_heads else 0
+
+
+def k2_forward_runs(model, remat: str) -> int:
+    """K2's forward launches in one train step of ``model``: each
+    attention block's once, and each block of the stack once more under
+    ``remat="full"`` (``torch.utils.checkpoint`` runs a block's forward
+    again in backward; ``"dots"`` keeps K2's output); the MTP head's
+    block is not rematerialized."""
+    return _attn_blocks(model) + (_n_attn(model) if remat == "full" else 0)
+
+
 # the archs of lm_train (e): every family beside granite's dense one at
 # its reduced config; recurrentgemma at 3 layers, whose third block is
 # its local attention (the reduced 2 are both RG-LRU blocks); danube's
@@ -2921,8 +3100,6 @@ PARITY_ARCHS = (("moonshot-v1-16b-a3b", None), ("deepseek-v3-671b", None),
 
 
 def parity_configs() -> List:
-    import dataclasses
-
     from repro_torch.config import get_arch, reduced_config
     out = []
     for name, depth in PARITY_ARCHS:
@@ -2935,35 +3112,63 @@ def parity_configs() -> List:
 def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
                   seq: int = 64, batch: int = 8,
                   seeds: Tuple[int, int] = (9, 5),
-                  keep: Optional[Dict] = None) -> Dict:
+                  keep: Optional[Dict] = None, dtype: str = "float32",
+                  parallel=None) -> Dict:
     """``steps`` train steps of reduced ``cfg`` on ``dev`` (K2 forward)
-    and of the port on the CPU (the plain version), from the same weights
-    (``seeds``: the init's, the token source's), with no warm-up
-    (``warmup_steps=0``): the first step already takes the peak learning
-    rate, so every step moves the weights. The batches are the family's
-    (``make_host_batch``: tokens, patches before them, frames), ``batch``
-    x ``seq``. Gates: every step's loss at ``rel=1e-5`` and every
-    parameter after the last step at ``atol=1e-5`` of the CPU's, the
-    reference's bars (``tests/test_train.py:67-70``); every step's grad
-    norm at ``rel=1e-4`` and each gradient of the first step within
-    ``1e-5`` plus ``1e-4`` of its largest element, the CPU tests' bar
-    (``tests/test_torch_train.py``: float32 cancels digits in the
-    embedding's input rows), and so every step's gradients as the step
-    hands them to AdamW; the weights moved by more than ten times
-    ``atol``. With ``slack``, an element whose CPU gradient lies within
-    its bar of 0 at some step may lie further from the CPU's by what the
-    gradient bars can move AdamW's steps there (:meth:`_Updates.slack`);
-    reduced granite, lm_train (d), is held without it. Besides, the
-    parameters at ``atol`` of the CPU's AdamW fed the gradients the
-    card's steps computed (:meth:`_Updates.replay`: the card's optimizer
-    step). Every MoE dispatch of both runs (the first step's gradient and
-    the steps, recomputes included) with equal integer states (where one
-    differs: its token, experts and router margin); on the card, K2 (the
-    split-TF32 kernel) and its backward op once per attention block (the
-    MTP head's included) per step, and K2 never on the CPU. ``keep``, where
-    given, receives the runs before any gate is read (the initial
-    weights, the batches, the run's config, the paths, each side's first
-    gradients, parameters and slack; ``chip_train_float64.py``)."""
+    and of the port on the CPU (the plain version), from the same
+    ``dtype`` weights (``seeds``: the init's, the token source's), under
+    ``parallel`` (a ``ParallelConfig``; ``remat="dots"`` where None),
+    with no warm-up (``warmup_steps=0``): the first step already takes
+    the peak learning rate, so every step moves the weights. The batches
+    are the family's (``make_host_batch``: tokens, patches before them,
+    frames), ``batch`` x ``seq``. The bars are the dtype's.
+
+    float32: every step's loss at ``rel=1e-5`` and every parameter
+    after the last step at ``atol=1e-5`` of the CPU's, the reference's
+    bars (``tests/test_train.py:67-70``); every step's grad norm at
+    ``rel=1e-4`` and each gradient of the first step (through the step's
+    own loss function) within ``1e-5`` plus ``1e-4`` of its largest
+    element, the CPU tests' bar (``tests/test_torch_train.py``: float32
+    cancels digits in the embedding's input rows), and so every step's
+    gradients as the step hands them to AdamW; the weights moved by more
+    than ten times ``atol``. With ``slack``, an element whose CPU
+    gradient lies within its bar of 0 at some step may lie further from
+    the CPU's by what the gradient bars can move AdamW's steps there
+    (:meth:`_Updates.slack`); reduced granite, lm_train (d), is held
+    without it. Besides, the parameters at ``atol`` of the CPU's AdamW
+    fed the gradients the card's steps computed (:meth:`_Updates.replay`:
+    the card's optimizer step). Every MoE dispatch of both runs (the
+    first step's gradient and the steps, recomputes included) with equal
+    integer states (where one differs: its token, experts and router
+    margin).
+
+    bfloat16 (the reference's training configuration, with
+    ``parallel_for``'s remat, microbatches and moment dtype;
+    ``tests/test_torch_train_bf16.py``'s rule): each gradient every step
+    hands AdamW, tensor by tensor, no farther from the float64 gradient
+    of the weights it was taken at (``float64_grads``) than 3x the CPU's
+    bfloat16 gradient is from its own float64 one, and the step's grad
+    norm no farther from the float64 norm than 3x the CPU's gradient is
+    in norm; every step's loss at ``rel=2e-2`` of the CPU's, parameters
+    and moments after the last step at ``atol=2e-2`` (the bfloat16 bar of
+    ``tests/test_kernels.py:32``); the card's parameters and moments
+    against the CPU's AdamW fed the card's gradients, each element
+    within one ulp of its dtype a step and at most 2 % of them apart (the
+    two devices' float32 arithmetic may round an element's last bit
+    apart, and the bfloat16 rounding then lands one value over); at
+    least a tenth of the bfloat16 weights moved on the CPU. MoE:
+    ``dispatch_flips`` of the two runs' dispatches, gated ``ok``; the
+    loss beside a float32 forward of the same weights on the card.
+
+    On the card, K2's forward launches (``k2_forward_runs`` a microbatch
+    and step) all on its split-TF32 kernel in float32 and on its
+    ``wgmma`` kernel in bfloat16 where the head dim is a multiple of 16
+    (else SIMT), its backward op once per attention block (the MTP
+    head's included) a microbatch and step, and K2 never on the CPU.
+    ``keep``, where given, receives the runs before any gate is read
+    (the initial weights, the batches, the run's config, the paths, each
+    side's first gradients, parameters and, in float32, slack;
+    ``chip_train_float64.py``)."""
     import torch
     from repro_torch.config import (ParallelConfig, RunConfig, ShapeConfig,
                                     TrainConfig)
@@ -2972,51 +3177,108 @@ def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
     from repro_torch.models.lm import build_model
     from repro_torch.train import (AdamWConfig, TrainState, make_loss_fn,
                                    make_train_step)
+    from repro_torch.train.step import _STATE_DTYPES
     from repro_torch.utils.tree import tree_flatten_with_paths, tree_leaves
     t_run = time.perf_counter()
     cpu = torch.device("cpu")
-    loss_rel, grad_rel, atol = 1e-5, 1e-4, 1e-5
+    bf16 = dtype == "bfloat16"
+    parallel = parallel or ParallelConfig(remat="dots")
     run = RunConfig(arch=cfg, shape=ShapeConfig("t", seq, batch, "train"),
-                    parallel=ParallelConfig(remat="dots"),
-                    train=TrainConfig(warmup_steps=0))
+                    parallel=parallel, train=TrainConfig(warmup_steps=0))
     source = TokenSource(cfg.vocab_size, seeds[1])
     batches = [make_host_batch(cfg, seq, batch, source, i)
                for i in range(steps)]
-    host = build_model(cfg, device=cpu, dtype=torch.float32)
+    host = build_model(cfg, device=cpu, dtype=getattr(torch, dtype))
     host.init(torch.Generator().manual_seed(seeds[0]))
-    card = build_model(cfg, device=dev, dtype=torch.float32)
+    card = build_model(cfg, device=dev, dtype=getattr(torch, dtype))
     card.load_state_dict(host.state_dict())
-    blocks = _attn_blocks(host)
+    n_micro = parallel.microbatches
     init = [p.detach().clone() for p in tree_leaves(host.param_tree())]
     paths = [p for p, _ in tree_flatten_with_paths(host.param_tree())]
     out = {}
     for name, model in (("cpu", host), ("card", card)):
         step_fn = make_train_step(model, run)     # the parameters trainable
-        state = TrainState.init(model.param_tree(), AdamWConfig())
+        state = TrainState.init(model.param_tree(), AdamWConfig(
+            state_dtype=_STATE_DTYPES[parallel.opt_state_dtype]))
         with _Dispatches(keep_states=True) as disp:
-            # the first step's gradients: the step's own loss function (a
-            # parameter the loss does not read gets zeros, as in the step)
-            loss = make_loss_fn(model, run)(batches[0])
-            grads = [g.cpu() for g in torch.autograd.grad(
-                loss, tree_leaves(state["params"]), materialize_grads=True)]
+            grads = None
+            if not bf16:
+                # the first step's gradients: the step's own loss function
+                # (a parameter the loss does not read gets zeros, as in
+                # the step)
+                loss = make_loss_fn(model, run)(batches[0])
+                grads = [g.cpu() for g in torch.autograd.grad(
+                    loss, tree_leaves(state["params"]),
+                    materialize_grads=True)]
             _reset_attn_launches()
             metrics = []
             with _Updates() as updates:
                 for b in batches:
                     state, m = step_fn(state, b)
                     metrics.append(torch.stack([m["loss"], m["grad_norm"],
-                                                m["lr"]]))
+                                                m["lr"]]).float())
             k2 = _attn_launches()
             bwd = fa_kernel.backward_calls["flash_attention_backward"]
         out[name] = {"metrics": torch.stack(metrics).cpu().numpy(),
-                     "grads": grads,
+                     "grads": grads if grads is not None
+                     else updates.calls[0][0],
                      "params": [p.detach().cpu()
                                 for p in tree_leaves(state["params"])],
-                     "k2": k2["flash_attention"],
-                     "k2_tc": k2["flash_attention_tc"],
-                     "k2_f32tc": k2["flash_attention_f32tc"], "bwd": bwd,
-                     "dispatches": disp, "updates": updates}
+                     "moments": [[t.detach().cpu() for t in
+                                  tree_leaves(state["opt"][mo])]
+                                 for mo in ("m", "v")],
+                     "k2": k2, "bwd": bwd, "dispatches": disp,
+                     "updates": updates}
     got, want = out["card"], out["cpu"]
+    what = f"{cfg.name} {dtype} on {dev}"
+    rel = np.abs(got["metrics"] - want["metrics"]) / np.abs(want["metrics"])
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "steps": steps,
+           "batch": batch, "seq": seq, "seeds": list(seeds),
+           "dtype": dtype, "remat": parallel.remat,
+           "microbatches": n_micro,
+           "opt_state_dtype": parallel.opt_state_dtype,
+           "warmup_steps": 0, "lr": want["metrics"][:, 2].tolist(),
+           "losses_card": got["metrics"][:, 0].tolist(),
+           "losses_cpu": want["metrics"][:, 0].tolist(),
+           "loss_rel_err": float(rel[:, 0].max())}
+    if bf16:
+        res.update(_bf16_parity_gates(dev, cfg, what, got, want, init,
+                                      paths, batches, n_micro))
+    else:
+        res.update(_f32_parity_gates(cfg, what, got, want, init, paths,
+                                     batches, run, slack, keep))
+    forwards = k2_forward_runs(host, parallel.remat) * n_micro * steps
+    blocks = _attn_blocks(host) * n_micro * steps
+    tc = bf16 and k2_head_dim(cfg) % 16 == 0
+    res.update({"attention_blocks": _attn_blocks(host),
+                "k2_forward_runs": forwards,
+                "k2_kernel": ("none" if not forwards else "tc" if tc
+                              else "simt" if bf16 else "f32tc"),
+                "k2_launches_card": got["k2"]["flash_attention"],
+                "k2_tc_launches_card": got["k2"]["flash_attention_tc"],
+                "k2_launches_cpu": want["k2"]["flash_attention"],
+                "flash_attention_backward_op_calls": got["bwd"]})
+    if dev.type == "cuda":
+        f32tc = 0 if bf16 else forwards
+        gate(got["k2"]["flash_attention"] == forwards
+             and got["k2"]["flash_attention_tc"] == (forwards if tc else 0)
+             and got["k2"]["flash_attention_f32tc"] == f32tc
+             and want["k2"]["flash_attention"] == 0,
+             f"{what}: K2 launches {got['k2']} on the card, {want['k2']} "
+             f"on the CPU, expected {forwards} ({res['k2_kernel']}) and 0")
+        gate(got["bwd"] == blocks, f"{what}: {got['bwd']} calls of K2's "
+             f"backward op, expected {blocks}")
+    res["s"] = time.perf_counter() - t_run
+    return res
+
+
+def _f32_parity_gates(cfg, what: str, got: Dict, want: Dict, init: List,
+                      paths: List, batches: List, run, slack: bool,
+                      keep: Optional[Dict]) -> Dict:
+    """``_train_parity``'s float32 bars (its docstring), gated; returns
+    their readings."""
+    loss_rel, grad_rel, atol = 1e-5, 1e-4, 1e-5
+    steps = len(batches)
     rel = np.abs(got["metrics"] - want["metrics"]) / np.abs(want["metrics"])
     # each gradient's error over its bound: at most 1 passes
     grad_ratio = {path: _max_err(a, b) / (atol + grad_rel
@@ -3051,7 +3313,6 @@ def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
     replay_err = max(_max_err(a, b) for a, b in zip(
         got["params"], got["updates"].replay(init)))
     moved = max(_max_err(a, b) for a, b in zip(want["params"], init))
-    what = f"{cfg.name} on {dev}"
     gate(float(rel[:, 0].max()) <= loss_rel, f"{what}: train step losses "
          f"off the CPU's by {rel[:, 0].tolist()} (relative)")
     gate(float(rel[:, 1].max()) <= grad_rel, f"{what}: train step grad "
@@ -3069,13 +3330,7 @@ def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
                              f"{replay_err}")
     gate(moved > 10 * atol, f"{what}: the steps moved the weights by "
                             f"{moved} only")
-    res = {"arch": cfg.name, "layers": cfg.n_layers, "steps": steps,
-           "batch": batch, "seq": seq, "seeds": list(seeds),
-           "warmup_steps": 0, "lr": want["metrics"][:, 2].tolist(),
-           "losses_card": got["metrics"][:, 0].tolist(),
-           "losses_cpu": want["metrics"][:, 0].tolist(),
-           "loss_rel_err": float(rel[:, 0].max()),
-           "grad_norm_rel_err": float(rel[:, 1].max()),
+    res = {"grad_norm_rel_err": float(rel[:, 1].max()),
            "grad_worst": {"path": worst, "err_over_bound":
                           grad_ratio[worst]},
            "step_grad_worst": {"step": step_worst[0], "path":
@@ -3092,10 +3347,7 @@ def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
                            "largest": max(used, default=0.0)},
            "param_vs_card_grads_replay": replay_err,
            "param_max_move": moved,
-           "rel": loss_rel, "grad_rel": grad_rel, "atol": atol,
-           "attention_blocks": blocks, "k2_launches_card": got["k2"],
-           "k2_launches_cpu": want["k2"],
-           "flash_attention_backward_op_calls": got["bwd"]}
+           "rel": loss_rel, "grad_rel": grad_rel, "atol": atol}
     if cfg.moe is not None:
         diff = want["dispatches"].difference(got["dispatches"])
         res["moe"] = {"dispatches": len(got["dispatches"].states),
@@ -3103,16 +3355,205 @@ def _train_parity(dev, cfg, steps: int = 3, slack: bool = True,
                       "first_difference": diff}
         gate(diff is None, f"{what}: a dispatch state differs from the "
                            f"CPU's: {diff}")
-    if dev.type == "cuda":
-        gate(got["k2"] == got["k2_f32tc"] == blocks * steps
-             and got["k2_tc"] == 0 and want["k2"] == 0,
-             f"{what}: K2 launches {got['k2']} ({got['k2_f32tc']} split "
-             f"TF32, {got['k2_tc']} bfloat16) on the card, {want['k2']} on "
-             f"the CPU, expected {blocks * steps} (all split TF32) and 0")
-        gate(got["bwd"] == blocks * steps, f"{what}: {got['bwd']} calls of "
-             f"K2's backward op, expected {blocks * steps}")
-    res["s"] = time.perf_counter() - t_run
     return res
+
+
+# the bfloat16 bars of the reference's training configuration
+# (tests/test_torch_train_bf16.py): losses, parameters and moments at the
+# bfloat16 bar of tests/test_kernels.py:32; gradients within 3x the
+# yardstick's distance from float64; the card's AdamW against the CPU's on
+# the card's gradients: one ulp a step, at most REPLAY_APART of the
+# elements apart; at least MOVED_SHARE of the bfloat16 weights moved,
+# five times REPLAY_APART, so that an update left undone fails the replay
+# (at lr 3e-4 a weight moves only below ~0.1, where that is more than
+# half its ulp: 20-30 % of the reduced archs' weights)
+BF16_TRAIN_REL, BF16_TRAIN_ATOL, TIMES_YARDSTICK = 2e-2, 2e-2, 3.0
+REPLAY_APART, MOVED_SHARE = 0.02, 0.1
+
+
+def ulps_apart(a, b) -> np.ndarray:
+    """Per element, how many values of ``a``'s dtype (bfloat16 or
+    float32) lie between ``a`` and ``b`` (``b`` rounded to that dtype):
+    the distance of their bit patterns taken as signed magnitudes."""
+    import torch
+    itype = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[
+        a.dtype]
+    bits = 8 * a.element_size() - 1
+
+    def ordered(t):
+        i = t.contiguous().view(itype).long()
+        return torch.where(i < 0, -(i & ((1 << bits) - 1)), i)
+
+    return (ordered(a) - ordered(b.to(a.dtype))).abs().numpy()
+
+
+def _bf16_parity_gates(dev, cfg, what: str, got: Dict, want: Dict,
+                       init: List, paths: List, batches: List,
+                       n_micro: int) -> Dict:
+    """``_train_parity``'s bfloat16 bars (its docstring), gated; returns
+    their readings."""
+    import torch
+    from repro_torch.models.lm import build_model
+    from repro_torch.utils.tree import tree_leaves
+    steps = len(batches)
+    rel = np.abs(got["metrics"] - want["metrics"]) / np.abs(want["metrics"])
+    # every step's handed gradients against float64 at the weights each
+    # side took them at, over 3x the CPU's distance
+    ratio, norm_ratio, norms, losses64 = {}, [], [], []
+    for k, (mine, theirs) in enumerate(zip(got["updates"].calls,
+                                           want["updates"].calls)):
+        b_card, b_cpu = got["updates"].before[k], want["updates"].before[k]
+        loss64, t_card = float64_grads(cfg, b_card, batches[k], n_micro)
+        losses64.append(loss64)
+        t_cpu = (t_card if all(torch.equal(a, b)
+                               for a, b in zip(b_card, b_cpu))
+                 else float64_grads(cfg, b_cpu, batches[k], n_micro)[1])
+        for path, a, b, tc, tp in zip(paths, mine[0], theirs[0], t_card,
+                                      t_cpu):
+            card_err = float(np.abs(a.double().numpy() - tc).max())
+            cpu_err = float(np.abs(b.double().numpy() - tp).max())
+            ratio[(k + 1, path)] = card_err / (TIMES_YARDSTICK * cpu_err
+                                               + 1e-7)
+        norm64 = float(np.sqrt(sum(float((t * t).sum()) for t in t_card)))
+        cpu_dist = float(np.sqrt(sum(
+            float(((b.double().numpy() - t) ** 2).sum())
+            for b, t in zip(theirs[0], t_cpu))))
+        norm_ratio.append(abs(float(got["metrics"][k, 1]) - norm64)
+                          / (TIMES_YARDSTICK * cpu_dist))
+        norms.append(norm64)
+    worst = max(ratio, key=ratio.get)
+    state_err = {name: max(_max_err(a, b) for a, b in zip(x, y))
+                 for name, x, y in (("params", got["params"],
+                                     want["params"]),
+                                    ("m", got["moments"][0],
+                                     want["moments"][0]),
+                                    ("v", got["moments"][1],
+                                     want["moments"][1]))}
+    # the card's AdamW: the CPU's fed the card's gradients from the
+    # initial weights and a fresh state
+    replayed = got["updates"].replay(init)
+    apart = [ulps_apart(a, b) for a, b in zip(got["params"], replayed)]
+    most = max(int(u.max()) for u in apart)
+    n = sum(u.size for u in apart)
+    apart = sum(int((u > 0).sum()) for u in apart)
+    moved = sum(int((a != b).sum()) for a, b in zip(want["params"], init)
+                if a.dtype == torch.bfloat16)
+    n_bf16 = sum(a.numel() for a in init if a.dtype == torch.bfloat16)
+    dtypes = [sorted({str(t.dtype) for t in side["params"]})
+              for side in (got, want)]
+    gate(ratio[worst] <= 1.0, f"{what}: step {worst[0]}'s gradient of "
+         f"{worst[1]} off float64 by {ratio[worst]} times 3x the CPU's "
+         f"bfloat16 distance")
+    gate(max(norm_ratio) <= 1.0, f"{what}: grad norms off the float64 "
+         f"norms {norms} by {norm_ratio} times 3x the CPU's gradient's "
+         f"distance")
+    gate(float(rel[:, 0].max()) <= BF16_TRAIN_REL, f"{what}: losses off "
+         f"the CPU's by {rel[:, 0].tolist()} (relative)")
+    gate(max(state_err.values()) <= BF16_TRAIN_ATOL, f"{what}: parameters "
+         f"or moments after {steps} steps off the CPU's by {state_err}")
+    gate(dtypes[0] == dtypes[1], f"{what}: parameter dtypes {dtypes[0]} "
+                                 f"on the card, {dtypes[1]} on the CPU")
+    gate(most <= steps and apart <= REPLAY_APART * n, f"{what}: parameters "
+         f"after {steps} steps off the CPU's AdamW on the card's gradients "
+         f"by up to {most} ulps, {apart} of {n} elements apart")
+    gate(moved >= MOVED_SHARE * n_bf16, f"{what}: the steps moved {moved} "
+                                        f"of {n_bf16} bfloat16 weights only")
+    with torch.no_grad():
+        f32 = build_model(cfg, device=dev, dtype=torch.float32)
+        for p, q in zip(tree_leaves(f32.param_tree()), init):
+            p.copy_(q.float())
+        loss32 = float(f32.loss(batches[0]))
+    del f32
+    res = {"param_dtypes": dtypes[0],
+           "loss_float32_card": loss32, "losses_float64_cpu": losses64,
+           "grad_norms_card": got["metrics"][:, 1].tolist(),
+           "grad_norms_cpu": want["metrics"][:, 1].tolist(),
+           "grad_norms_float64": norms,
+           "grad_norm_err_over_bound": max(norm_ratio),
+           "grad_worst": {"step": worst[0], "path": worst[1],
+                          "err_over_bound": ratio[worst]},
+           "state_max_abs_err": state_err,
+           "replay": {"most_ulps": most, "elements_apart": apart,
+                      "elements": n},
+           "bf16_weights_moved_share": moved / max(n_bf16, 1),
+           "rel": BF16_TRAIN_REL, "atol": BF16_TRAIN_ATOL,
+           "times_yardstick": TIMES_YARDSTICK}
+    if cfg.moe is not None:
+        flips = dispatch_flips(want["dispatches"], got["dispatches"])
+        res["moe"] = {"dispatches": len(got["dispatches"].states),
+                      "dropped_card": got["dispatches"].dropped(),
+                      "dropped_cpu": want["dispatches"].dropped(),
+                      "flips": flips}
+        gate(flips["ok"], f"{what}: a dispatch state differs from the "
+                          f"CPU's where no router crossed: {flips}")
+    return res
+
+
+def float64_grads(cfg, leaves: List, batch: Dict, n_micro: int = 1
+                  ) -> Tuple[float, List[np.ndarray]]:
+    """The loss and gradients (NumPy, in tree order) of the weights
+    ``leaves`` (tensors in ``LanguageModel.param_tree()``'s order) on
+    ``batch``, in float64 on the CPU (``float64_path``), as the mean of
+    ``n_micro`` microbatches as a train step takes them."""
+    import torch
+    from repro_torch.models.lm import build_model
+    from repro_torch.utils.tree import tree_leaves
+    model = build_model(cfg, device=torch.device("cpu"),
+                        dtype=torch.float64)
+    params = tree_leaves(model.param_tree())
+    with torch.no_grad():
+        for p, q in zip(params, leaves):
+            p.copy_(q.detach().cpu().double())
+    model.requires_grad_(True)
+    rows = next(iter(batch.values())).shape[0] // n_micro
+    loss, grads = 0.0, [0.0] * len(params)
+    with float64_path():
+        for i in range(n_micro):
+            mb = {k: v[i * rows:(i + 1) * rows] for k, v in batch.items()}
+            lm = model.loss(mb)
+            gs = torch.autograd.grad(lm, params, materialize_grads=True)
+            loss += float(lm.detach()) / n_micro
+            grads = [a + g.numpy() / n_micro for a, g in zip(grads, gs)]
+    return loss, grads
+
+
+def dispatch_flips(cpu: "_Dispatches", card: "_Dispatches") -> Dict:
+    """Every MoE dispatch (both kept with ``keep_states``) whose integer
+    state differs between the runs: per call, each token whose experts
+    differ, with its router margin on the CPU (its k-th largest
+    probability less the next) and the largest gap between the two
+    runs' probabilities of that token. A state may differ only where a
+    token's experts do and the two routers' probabilities cross there
+    (the margin at most twice the gap); ``ok`` says whether every
+    differing call is so."""
+    import torch
+    if len(cpu.states) != len(card.states):
+        return {"ok": False, "calls": [len(cpu.states), len(card.states)]}
+    calls, ok = [], True
+    for c, (x, y) in enumerate(zip(cpu.states, card.states)):
+        if all(torch.equal(a, b) for a, b in zip(x, y)):
+            continue
+        mine, theirs = cpu.experts[c], card.experts[c]
+        k = mine.shape[-1]
+        tokens = []
+        for g, t in (mine.sort(-1).values
+                     != theirs.sort(-1).values).any(-1).nonzero().tolist():
+            p = cpu.probs[c][g, t].sort(descending=True).values
+            margin = float(p[k - 1] - p[k])
+            gap = float((cpu.probs[c][g, t]
+                         - card.probs[c][g, t]).abs().max())
+            tokens.append({"group": g, "token": t,
+                           "experts": [mine[g, t].tolist(),
+                                       theirs[g, t].tolist()],
+                           "router_margin": margin, "prob_gap": gap})
+        call_ok = bool(tokens) and all(
+            tk["router_margin"] <= 2 * tk["prob_gap"] for tk in tokens)
+        ok = ok and call_ok
+        calls.append({"call": c, "ok": call_ok, "tokens": tokens[:8],
+                      "n_tokens": len(tokens)})
+    return {"ok": ok, "calls_differing": len(calls), "calls": calls[:8],
+            "margins": sorted(tk["router_margin"] for cl in calls
+                              for tk in cl["tokens"])[:16]}
 
 
 def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
@@ -3120,7 +3561,8 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
                                 window: int = 0,
                                 v_dim: Optional[int] = None,
                                 arch: Optional[str] = None,
-                                misaligned: bool = False) -> Dict:
+                                misaligned: bool = False,
+                                dtype=None) -> Dict:
     """K2 on the training path: float32 (the split-TF32 kernel), with a
     gradient, causal, sliding or bidirectional; where ``v_dim < d``
     (MLA) v has ``v_dim`` columns zero-padded to ``d``, as the model
@@ -3137,7 +3579,15 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
     With ``misaligned``, q, k, v and the gradient are views one element
     into rows of ``d + 1``, which the rule sends to the SIMT kernel. At
     granite's shape: the kernel line's ``flash_attention_f32tc`` row
-    (and, ``misaligned``, the SIMT kernel held to its plain version)."""
+    (and, ``misaligned``, the SIMT kernel held to its plain version).
+    With ``dtype=torch.bfloat16``, the reference's training type: the
+    ``wgmma`` kernel's forward against the plain version at the
+    bfloat16 bar and the row rule (``_check_close``), the gradients
+    through K2's op (its backward op, the plain version's gradient at
+    the forward's exact ``d ** -0.5``) equal to autograd through the
+    plain version at that scale; the bound at the bfloat16 rate; the
+    backward op and SDPA's forward and backward timed with CUDA events
+    beside (``backward_ms``, ``library_backward_ms``)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import kernel as fa
@@ -3145,10 +3595,15 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
     from repro_torch.kernels.flash_attention.ref import (attention_mask,
                                                           flash_attention_ref)
     t_phase = time.perf_counter()
+    dtype = torch.float32 if dtype is None else dtype
+    bf16 = dtype == torch.bfloat16
     v_dim = d if v_dim is None else v_dim
     kw = dict(causal=causal, window=window)
+    if bf16:
+        # the scale the op's forward and backward use on the card
+        kw["scale"] = d ** -0.5
     g = _generator(dev, 10)
-    q, k, v, grad = _randn(g, dev, torch.float32, (b, hq, s, d),
+    q, k, v, grad = _randn(g, dev, dtype, (b, hq, s, d),
                            (b, hkv, s, d), (b, hkv, s, v_dim),
                            (b, hq, s, v_dim))
     v, grad = F.pad(v, (0, d - v_dim)), F.pad(grad, (0, d - v_dim))
@@ -3170,14 +3625,20 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
     launches = _k2_launches(before)
     what = f"K2 training {arch or ''} D={d} window={window}"
     if dev.type == "cuda":
-        want = "simt" if misaligned else "f32tc"
+        want = "simt" if misaligned else ("tc" if bf16 else "f32tc")
         gate(kernel == want and launches == _k2_one(want),
              f"{what}: which_kernel {kernel}, launches {launches}")
-    fwd_err = _max_err(grads["kernel"][0], grads["plain"][0])
+    if bf16:
+        close = _check_close(what, grads["kernel"][0], grads["plain"][0])
+        fwd_err = close["max_abs_err"]
+    else:
+        close = {}
+        fwd_err = _max_err(grads["kernel"][0], grads["plain"][0])
+        gate(fwd_err <= ATOL["float32"], f"{what}: forward off by "
+                                         f"{fwd_err}")
     grad_err = max(_max_err(x, y) for x, y in zip(grads["kernel"][1],
                                                   grads["plain"][1]))
     padded_zero = bool((grads["kernel"][0][..., v_dim:] == 0).all().item())
-    gate(fwd_err <= ATOL["float32"], f"{what}: forward off by {fwd_err}")
     gate(grad_err == 0.0, f"{what}: q/k/v gradients off the plain "
                           f"version's by {grad_err}")
     gate(padded_zero, f"{what}: padded v columns gave non-zero output")
@@ -3188,6 +3649,26 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
         lib_note = "a boolean window mask"
     else:
         lib_kw, lib_note = {"is_causal": causal}, None
+    extra = {}
+    if bf16:
+        # the backward op alone (the plain version's gradient), and
+        # SDPA's forward and backward, with CUDA events
+        saved = [t.detach().clone() for t in (q, k, v)]
+        extra["backward_ms"] = time_ms(
+            lambda: torch.ops.repro_torch.flash_attention_backward(
+                grad, *saved, causal, window, kw["scale"]), dev,
+            max(reps // 10, 1))
+        leaves = [t.detach().clone().requires_grad_(True) for t in saved]
+
+        def sdpa_fwd_bwd():
+            o = _sdpa_gqa(*leaves, scale=kw["scale"], **lib_kw)
+            torch.autograd.grad(o, leaves, grad)
+
+        extra["library_backward_ms"] = time_ms(sdpa_fwd_bwd, dev,
+                                               max(reps // 10, 1))
+        extra["library_backward"] = ("scaled_dot_product_attention's "
+                                     "forward and backward")
+        del leaves, saved
     with torch.no_grad():
         # the kernel and SDPA by graph replay, as every kernel row; the
         # wrapper's host work per call beside it (call_ms)
@@ -3198,9 +3679,15 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
         library_ms, gqa_note = _library_ms(dev, reps, q, k, v,
                                            timer=graph_ms, **lib_kw)
     pairs = b * hq * _attn_pairs(s, s, causal, window)
-    nbytes = 4 * (2 * q.numel() + k.numel() + v.numel())
+    nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+    if bf16:
+        bounds = bound(nbytes, 4 * d * pairs, H100_BF16_OPS_PER_S)
+    else:
+        bounds = {**bound(nbytes, 3 * 4 * d * pairs, H100_TF32_OPS_PER_S),
+                  "bound_f32_ms": bound(nbytes, 4 * d * pairs)["bound_ms"]}
     return {"phase": "flash_attention_train", "arch": arch,
-            "shape": [b, hq, hkv, s, d], "v_dim": v_dim, "dtype": "float32",
+            "shape": [b, hq, hkv, s, d], "v_dim": v_dim,
+            "dtype": str(dtype).split(".")[-1], **close, **extra,
             "causal": causal, "window": window, "misaligned": misaligned,
             "kernel": kernel, "launches": launches,
             "max_abs_err": fwd_err, "grad_max_abs_err": grad_err,
@@ -3210,9 +3697,7 @@ def phase_flash_attention_train(dev, b: int, hq: int, hkv: int, d: int,
             "library": "scaled_dot_product_attention ("
                        + ", ".join(n for n in (gqa_note, lib_note) if n)
                        + ")",
-            **bound(nbytes, 3 * 4 * d * pairs, H100_TF32_OPS_PER_S),
-            "bound_f32_ms": bound(nbytes, 4 * d * pairs)["bound_ms"],
-            "phase_s": time.perf_counter() - t_phase}
+            **bounds, "phase_s": time.perf_counter() - t_phase}
 
 
 def phase_lm_train(dev, full_cfg, launch_steps: int, ckpt_every: int,
@@ -3238,7 +3723,7 @@ def phase_lm_train(dev, full_cfg, launch_steps: int, ckpt_every: int,
     out["b"] = _train_restart(dev)
     _free(dev)
     out["c"] = _train_full(dev, full_cfg, full_batch, full_seq, full_steps,
-                           models)
+                           models, float32_training())
     _free(dev)
     out["d"] = _train_parity(dev, reduced_config(get_arch("granite-3-2b")),
                              slack=False)
@@ -3299,10 +3784,101 @@ def family_train_phases(dev, get_arch, models, batch: int, seq: int,
 
     def full(cfg) -> Dict:
         return {"phase": "lm_train_full",
-                **_train_full(dev, cfg, batch, seq, steps, models)}
+                **_train_full(dev, cfg, batch, seq, steps, models,
+                              float32_training())}
 
     for name in FULL_TRAIN_ARCHS:
         run(f"train_{name}", full, get_arch(name))
+    return out
+
+
+# lm_train's reference configuration for the MoE family: moonshot's
+# depth such that its weights, gradients and AdamW moments (2 + 2 + 4 + 4
+# bytes a parameter) fit this much of the 80 GB card, with the init's
+# transient; the rest, ~20 GB, takes the activations of 1 x 4,096
+# tokens under remat "full" (the logits over its 163,840-token vocab in
+# bfloat16 and float32, one layer's plain attention backward) and
+# AdamW's float32 copies of the 0.34 B-element embedding
+MOE_TRAIN_BUDGET = 60e9
+TRAIN_STATE_BYTES = 12
+
+
+def reference_train_configs(get_arch) -> Dict:
+    """What ``phase_reference_train`` runs: moonshot-v1-16b-a3b at its
+    published width, cut in depth to ``MOE_TRAIN_BUDGET`` (``moe``), and
+    the reduced archs of ``parity_configs`` and reduced
+    command-r-plus-104b (``parity``), each with ``parallel_for`` of its
+    published arch at ``train_4k``: the XXL settings (4 microbatches,
+    bfloat16 moments) for deepseek-v3-671b and command-r-plus-104b."""
+    from repro_torch.config import reduced_config
+    from repro_torch.config.types import get_shape
+    from repro_torch.launch.dryrun import parallel_for
+    shape = get_shape("train_4k")
+    moon = get_arch("moonshot-v1-16b-a3b")
+    cut = depth_that_fits(moon, TRAIN_STATE_BYTES, MOE_TRAIN_BUDGET,
+                          init_bytes=2)
+    parity = [(cfg, parallel_for(get_arch(name), shape))
+              for (name, _), cfg in zip(PARITY_ARCHS, parity_configs())]
+    # deepseek-v3-671b's published 671 B parameters already give it the
+    # XXL settings (4 microbatches, bfloat16 moments); command-r-plus's
+    # 104 B do too
+    xxl = [(reduced_config(get_arch("command-r-plus-104b")),
+            parallel_for(get_arch("command-r-plus-104b"), shape))]
+    return {"moe": {"published": moon,
+                    "cfg": dataclasses.replace(moon, n_layers=cut["to"]),
+                    "depth_cut": cut, "shape": shape, "batch": 1,
+                    "steps": SHAPE_STEPS["train_4k"],
+                    "parallel": parallel_for(moon, shape)},
+            "parity": parity + xxl}
+
+
+def phase_reference_train(dev, moe: Dict, parity: List, models) -> Dict:
+    """The reference's training configuration beyond granite's train_4k
+    cell (``reference_train_configs``): (b) the MoE family at full width
+    for the first time: ``moe``'s arch cut in depth only, ``batch`` x
+    ``seq_len`` tokens, ``steps`` steps on one batch (``_train_full``
+    with its ``parallel``: bfloat16, remat "full", float32 moments, no
+    warm-up), the loss finite and falling, K2 on its ``wgmma`` kernel,
+    the assignments dropped at the published capacity factor in every
+    dispatch of the run (forwards and recomputes), each call's drops
+    also counted plainly from its expert loads and gated equal, and per
+    layer of the first forward the drop share, the largest load over the
+    capacity, the router's logit spread and how alike its tokens are
+    (``_Dispatches.load_stats``); (c) one bfloat16 step
+    of each ``parity`` arch on the card against the CPU
+    (``_train_parity`` in bfloat16)."""
+    t_phase = time.perf_counter()
+    out: Dict = {"phase": "reference_train"}
+    cfg = moe["cfg"]
+    with _Dispatches(loads=True) as disp:
+        full = _train_full(dev, cfg, moe["batch"], moe["shape"].seq_len,
+                           moe["steps"], models,
+                           reference_training(moe["parallel"]),
+                           same_batch=True)
+    losses = full["losses"]
+    name = cell_name(moe["published"].name, moe["shape"].name)
+    gate(losses[-1] < losses[0], f"{name}: the loss did not fall over "
+                                 f"{moe['steps']} steps: {losses}")
+    full.update({"cell": name, "depth_cut": moe["depth_cut"],
+                 "reduced": shape_cuts(moe["published"], cfg, moe["shape"],
+                                       moe["batch"]),
+                 "moe": {"dispatches": len(disp.counts),
+                         "assignments": disp.assignments(),
+                         "dropped": disp.dropped(),
+                         "dropped_share": disp.dropped()
+                         / max(disp.assignments(), 1),
+                         "capacity_factor": cfg.moe.capacity_factor,
+                         "capacities": disp.capacities,
+                         "loads": disp.load_stats(cfg.n_layers)}})
+    out["moe_train"] = full
+    _free(dev)
+    out["parity"] = []
+    for pcfg, parallel in parity:
+        out["parity"].append(_train_parity(dev, pcfg, steps=1,
+                                           dtype="bfloat16",
+                                           parallel=parallel))
+        _free(dev)
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -3483,6 +4059,10 @@ REFERENCE_CELLS = (("granite-3-2b", "prefill_32k", 1),
                    ("mamba2-370m", "long_500k", 1),
                    ("recurrentgemma-2b", "long_500k", 1),
                    ("h2o-danube-1.8b", "long_500k", 1))
+# the batch train_4k's probe tries first and the largest it tries (its
+# step in the reference's configuration: bfloat16 weights, remat
+# "full"); B 3 is the largest that fits an H100 80GB HBM3
+TRAIN_PROBE_FROM, TRAIN_PROBE_MOST = 3, 8
 # decode steps of the serving shapes (the last at position seq_len - 1)
 # and train steps of train_4k
 SHAPE_STEPS = {"decode_32k": 8, "long_500k": 16, "train_4k": 3}
@@ -3772,8 +4352,6 @@ def _decode_parity(dev, cell: Dict, seed: int) -> Dict:
     tokens; every step's logits at ``DECODE_ATOL``. On the card each
     attention block launches K3's SIMT split kernel (float32) once a
     step."""
-    import dataclasses
-
     import torch
     from repro_torch.models.lm import build_model
     p = cell["parity"]
@@ -3968,36 +4546,45 @@ def _decode_cell(dev, cell: Dict, seed: int, reps: int) -> Dict:
     return out
 
 
-def _train_batch_probe(dev, cfg, batch: int, seq: int) -> Dict:
+def _train_batch_probe(dev, cfg, batch: int, seq: int,
+                       training: Training) -> Dict:
     """One step of ``_train_full``'s model, state and train step at
-    ``batch`` x ``seq`` (no pipeline, no warm-up): whether it fits the
-    card, and the peak bytes it reached, at its end or where it ran out
-    of memory."""
+    ``batch`` x ``seq`` under ``training`` (no pipeline, no warm-up):
+    whether it fits the card, and the peak bytes it reached, at its end
+    or where it ran out of memory."""
     import torch
-    from repro_torch.config import (ParallelConfig, RunConfig, ShapeConfig,
-                                    TrainConfig)
+    from repro_torch.config import RunConfig, ShapeConfig
     from repro_torch.data import TokenSource, make_host_batch
     from repro_torch.models.lm import build_model
     from repro_torch.train import AdamWConfig, TrainState, make_train_step
+    from repro_torch.train.step import _STATE_DTYPES
     cuda = dev.type == "cuda"
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
-    model = build_model(cfg, device=dev, dtype=torch.float32)
-    model.init(_generator(dev, 8))
-    run = RunConfig(arch=cfg, shape=ShapeConfig("full", seq, batch, "train"),
-                    parallel=ParallelConfig(remat="dots",
-                                            opt_state_dtype="float32"),
-                    train=TrainConfig(steps=1))
-    state = TrainState.init(model.param_tree(), AdamWConfig())
-    step_fn = make_train_step(model, run)
-    tokens = make_host_batch(cfg, seq, batch, TokenSource(cfg.vocab_size,
-                                                          seed=0), 0)
+    dtype, parallel = training.dtype, training.parallel
     error = None
+    model = state = step_fn = None
     try:
+        model = build_model(cfg, device=dev, dtype=dtype)
+        model.init(_generator(dev, 8))
+        run = RunConfig(arch=cfg, shape=ShapeConfig("full", seq, batch,
+                                                    "train"),
+                        parallel=parallel,
+                        train=dataclasses.replace(training.train, steps=1))
+        state = TrainState.init(model.param_tree(), AdamWConfig(
+            state_dtype=_STATE_DTYPES[parallel.opt_state_dtype]))
+        step_fn = make_train_step(model, run)
+        tokens = make_host_batch(cfg, seq, batch,
+                                 TokenSource(cfg.vocab_size, seed=0), 0)
         state, _ = step_fn(state, tokens)
         sync(dev)
-    except torch.cuda.OutOfMemoryError as e:
-        error = str(e).splitlines()[0]
+    except (torch.cuda.OutOfMemoryError, RuntimeError) as e:
+        # cuBLAS reports a refused workspace as a RuntimeError
+        first = str(e).splitlines()[0]
+        if not isinstance(e, torch.cuda.OutOfMemoryError) and not any(
+                word in first for word in ("out of memory", "ALLOC_FAILED")):
+            raise
+        error = first
     peak = torch.cuda.max_memory_allocated(dev) if cuda else None
     del model, state, step_fn
     _free(dev)
@@ -4005,53 +4592,98 @@ def _train_batch_probe(dev, cfg, batch: int, seq: int) -> Dict:
             "peak_device_bytes": peak, "error": error}
 
 
+def _largest_batch(dev, cfg, seq: int, training: Training, first: int,
+                   most: int) -> Tuple[int, List[Dict]]:
+    """The largest batch up to ``most`` whose one step under ``training``
+    fits the card (``_train_batch_probe``): probed at ``first``, then a
+    batch at a time up while it fits or down until it does (a batch of 1
+    is taken to fit). Returns that batch and every probe, in order."""
+    probes = [_train_batch_probe(dev, cfg, first, seq, training)]
+    if probes[0]["fits"]:
+        batch = first
+        while batch < most:
+            probes.append(_train_batch_probe(dev, cfg, batch + 1, seq,
+                                             training))
+            if not probes[-1]["fits"]:
+                break
+            batch += 1
+        return batch, probes
+    batch = first - 1
+    while batch > 1:
+        probes.append(_train_batch_probe(dev, cfg, batch, seq, training))
+        if probes[-1]["fits"]:
+            break
+        batch -= 1
+    return max(batch, 1), probes
+
+
 def _train_cell(dev, cell: Dict, seed: int, reps: int, models) -> Dict:
-    """The launcher's train step (``_train_full``: float32, AdamW,
-    ``remat="dots"``, the CARAT-on pipeline) at ``batch`` x ``seq_len``,
-    ``steps`` steps on one batch: losses finite and falling, the
-    reference's rule (``tests/test_train.py:73-87``); whether one step at
-    the next batch fits the card (``next_batch``); K2's split-TF32
-    kernel with its gradient at the cell's heads and length
-    (``phase_flash_attention_train``, the row); and ``steps`` steps of
-    ``parity_cfg`` at the same length on the card against the CPU
-    (``_train_parity``'s bars)."""
-    cfg, shape, batch = cell["cfg"], cell["shape"], cell["batch"]
+    """The launcher's train step in the reference's training
+    configuration (``_train_full`` with ``parallel_for`` of the
+    published arch and shape: bfloat16 weights, ``remat="full"``, its
+    microbatches and moment dtype, no warm-up of the learning rate) at
+    the largest batch one step fits (``_largest_batch``, from
+    ``cell["probe_from"]`` up to ``cell["most"]``; the probe past it is
+    ``next_batch``)
+    x ``seq_len``, ``steps`` steps on one batch: losses finite and
+    falling, the reference's rule (``tests/test_train.py:73-87``), K2's
+    forward launches all on its ``wgmma`` kernel (twice a block a step
+    under ``"full"``) and its backward op once a block a step; K2's
+    ``wgmma`` kernel and its backward op at the cell's operands
+    (``phase_flash_attention_train`` in bfloat16, the row); and one
+    bfloat16 step of ``parity_cfg`` at the same length on the card
+    against the CPU (``_train_parity``'s bfloat16 bars)."""
+    import torch
+    from repro_torch.launch.dryrun import parallel_for
+    cfg, shape = cell["cfg"], cell["shape"]
+    parallel = parallel_for(cell["published"], shape)
+    training = reference_training(parallel)
+    batch, probes = _largest_batch(dev, cfg, shape.seq_len, training,
+                                   cell["probe_from"], cell["most"])
+    cell = dict(cell, batch=batch)
     out = _cell_head(cell)
+    out["parallel"] = {"remat": parallel.remat,
+                       "microbatches": parallel.microbatches,
+                       "opt_state_dtype": parallel.opt_state_dtype}
+    out["batch_probes"] = probes
+    past = [p for p in probes if p["batch"] == batch + 1]
+    if past:
+        out["next_batch"] = past[0]
     full = _train_full(dev, cfg, batch, shape.seq_len, cell["steps"], models,
-                       same_batch=True)
+                       training, same_batch=True)
     losses = full["losses"]
     gate(losses[-1] < losses[0], f"{out['cell']}: the loss did not fall "
                                  f"over {cell['steps']} steps: {losses}")
     out["train"] = full
     _free(dev)
-    out["next_batch"] = _train_batch_probe(dev, cfg, batch + 1,
-                                           shape.seq_len)
     k2 = phase_flash_attention_train(
         dev, batch, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
-        shape.seq_len, reps=reps, arch=cfg.name)
-    k2.update(kernel="flash_attention_f32tc",
-              compared_launches=k2.pop("launches"),
-              launches=full["launches"]["flash_attention_f32tc"])
+        shape.seq_len, reps=reps, arch=cfg.name, dtype=torch.bfloat16)
+    k2.update(kernel="flash_attention", compared_launches=k2.pop("launches"),
+              launches=full["launches"]["flash_attention_tc"])
     out["kernels"] = [k2]
     _free(dev)
     pcfg = cell["parity_cfg"]
-    par = _train_parity(dev, pcfg, steps=cell["steps"], seq=shape.seq_len,
-                        batch=batch)
-    par["reduced"] = shape_cuts(cell["published"], pcfg, shape, batch)
+    # one row: the CPU's float64 side holds (4, 4096, 4096) float64
+    # logits and their gradients a row
+    par = _train_parity(dev, pcfg, steps=1, seq=shape.seq_len, batch=1,
+                        dtype="bfloat16", parallel=parallel)
+    par["reduced"] = shape_cuts(cell["published"], pcfg, shape, 1)
     out["parity"] = par
-    out["path_launches"] = {"flash_attention_f32tc":
-                            full["launches"]["flash_attention_f32tc"]
+    out["path_launches"] = {"flash_attention":
+                            full["launches"]["flash_attention_tc"]
                             + par["k2_launches_card"]}
     return out
 
 
 def reference_cells(get_arch) -> List[Dict]:
     """``REFERENCE_CELLS`` as the phase runs them: each arch at its
-    published width and depth, the shape of ``SHAPES``, the batch cut,
-    the steps, and the card-vs-CPU run (a decode shape's
+    published width and depth, the shape of ``SHAPES``, the batch cut
+    (train_4k's: its probe's first batch and largest, ``probe_from``
+    and ``most``), the steps, and the card-vs-CPU run (a decode shape's
     ``SHAPE_PARITY``; train_4k's at ``reduced_config`` widths: at full
-    width and 2 layers the CPU's side takes ~56 s a forward and backward
-    on 8 cores, four of them a run)."""
+    width and 2 layers the CPU's side takes ~56 s a forward and
+    backward on 8 cores, four of them a run)."""
     from repro_torch.config import reduced_config
     from repro_torch.config.types import get_shape
     cells = []
@@ -4061,6 +4693,8 @@ def reference_cells(get_arch) -> List[Dict]:
                 "batch": batch, "steps": SHAPE_STEPS.get(shape)}
         if shape == "train_4k":
             cell["parity_cfg"] = reduced_config(cfg)
+            cell["probe_from"] = TRAIN_PROBE_FROM
+            cell["most"] = TRAIN_PROBE_MOST
         elif shape in SHAPE_PARITY:
             cell["parity"] = dict(SHAPE_PARITY[shape])
             if cfg.rglru is not None:
@@ -4119,9 +4753,18 @@ def shape_summary(shapes: Dict) -> Dict:
     return rows
 
 
+def ref_train_launches(ref_train: Dict) -> int:
+    """K2's ``wgmma`` launches on ``phase_reference_train``'s paths: the
+    MoE arch's full-width steps and the card's side of every bfloat16
+    step against the CPU."""
+    return (ref_train["moe_train"]["launches"]["flash_attention_tc"]
+            + sum(r["k2_tc_launches_card"] for r in ref_train["parity"]))
+
+
 def summary_line(nvidia_smi: List[str], serves: List[Dict],
                  parity_runs: List[Dict], full_runs: List[Dict],
-                 shapes: Optional[Dict] = None) -> Dict:
+                 shapes: Optional[Dict] = None,
+                 ref_train: Optional[Dict] = None) -> Dict:
     """What the end of the output, all that is kept of a whole run, must
     show: the card; each served arch's cache buffers at their addresses
     through generate and through its tail's replay; each arch trained on
@@ -4150,7 +4793,32 @@ def summary_line(nvidia_smi: List[str], serves: List[Dict],
                                 r["profiled"].get("device_idle_share"),
                             "backward_op_calls":
                                 r["flash_attention_backward_op_calls"]}
-                for r in full_runs}}
+                for r in full_runs},
+            "reference_train": None if ref_train is None else {
+                "moe_train": {k: ref_train["moe_train"].get(k) for k in (
+                    "cell", "layers", "ms_per_step", "tokens_per_s",
+                    "adamw_ms", "peak_device_bytes", "losses")} | {
+                    "device_idle_share": ref_train["moe_train"][
+                        "profiled"].get("device_idle_share"),
+                    "dropped_share": ref_train["moe_train"]["moe"][
+                        "dropped_share"],
+                    "by_layer": [
+                        [r["dropped_share"], r["tokens_mean_cosine"]]
+                        for r in ref_train["moe_train"]["moe"]["loads"][
+                            "first_forward_by_layer"]]},
+                "bf16_parity": {
+                    r["arch"] + (" xxl" if r["microbatches"] > 1 else ""): {
+                        "grad_over_bar": r["grad_worst"]["err_over_bound"],
+                        "norm_over_bar": r["grad_norm_err_over_bound"],
+                        "loss_rel_err": r["loss_rel_err"],
+                        "losses_bf16_f32_f64": [r["losses_card"][0],
+                                                r["loss_float32_card"],
+                                                r["losses_float64_cpu"][0]],
+                        "replay_ulps": r["replay"]["most_ulps"],
+                        "moved_share": r["bf16_weights_moved_share"],
+                        "flips": (r["moe"]["flips"]["calls_differing"]
+                                  if "moe" in r else None)}
+                    for r in ref_train["parity"]}}}
 
 
 def kernel_line(phases: Dict[str, Dict], launches: Dict[str, int],
@@ -4347,11 +5015,22 @@ def main() -> int:
     emit(shapes)
     _free(dev)
 
+    # the reference's training configuration beyond train_4k: the MoE
+    # family at full width (moonshot, depth cut), and one bfloat16 step
+    # of every reduced family on the card against the CPU
+    rt = reference_train_configs(get_arch)
+    ref_train = phase_reference_train(dev, rt["moe"], rt["parity"],
+                                      {"read": m_read, "write": m_write})
+    emit(ref_train)
+    _free(dev)
+
     # each kernel's launches summed over the paths that drive it: K1 and
     # K1b on the CARAT runs and the training pipelines; K2's wgmma
     # kernel in the bf16 prefills (granite's, the MoE family's, the
-    # hybrid's, the VLM's, internlm2's and command-r-plus's) and hubert's
-    # encode, its split-TF32 kernel in every float32 train step on the
+    # hybrid's, the VLM's, internlm2's and command-r-plus's), hubert's
+    # encode and the bf16 train steps (train_4k's cell, moonshot's
+    # full-width steps, the card's side of the bf16 steps against the
+    # CPU), its split-TF32 kernel in every float32 train step on the
     # card ((a), (c) of granite and of the four families, the card's side
     # of (d) and (e); the wgmma kernel is gated at 0 there), each row
     # beside its own kernel's timing (granite's shapes); K3 in generate
@@ -4362,7 +5041,7 @@ def main() -> int:
         dense[f"serve_{name}"] for name in (
             "internlm2-20b", "command-r-plus-104b")]
     emit(summary_line(device["nvidia_smi"], serves, parity_runs,
-                      full_runs, shapes))
+                      full_runs, shapes, ref_train))
     # the reference shapes' launches, in each kernel's sum
     by_shapes = {name: sum(c["path_launches"].get(name, 0)
                            for c in shapes["cells"].values())
@@ -4377,7 +5056,7 @@ def main() -> int:
          "flash_attention": sum(
              r["prefill"]["launches"]["flash_attention_tc"] for r in serves)
          + family["encode"]["launches"]["flash_attention_tc"]
-         + by_shapes["flash_attention"],
+         + by_shapes["flash_attention"] + ref_train_launches(ref_train),
          "flash_attention_f32tc": sum(r["flash_attention_f32tc"]
                                       for r in train_runs)
          + sum(r["k2_launches_card"] for r in parity_runs)

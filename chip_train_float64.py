@@ -25,7 +25,6 @@ One JSON line per arch, then the card's name and power limit.
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import json
 import sys
@@ -40,66 +39,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import chip_smoke  # noqa: E402
 
 
-@contextlib.contextmanager
-def _float64_path():
-    """The model's float32 casts on the training path widened to
-    float64 while active."""
-    import torch
-    from repro_torch.kernels.flash_attention.ref import (NEG_INF,
-                                                          attention_mask,
-                                                          default_scale)
-    from repro_torch.models import attention, layers, lm, moe, rglru, ssm
-
-    def attention64(q, k, v, causal=True, window=0, scale=None):
-        group = q.shape[1] // k.shape[1]
-        scale = (scale if scale is not None
-                 else default_scale(q.shape[-1], torch.float32))
-        kx = k.repeat_interleave(group, dim=1)
-        vx = v.repeat_interleave(group, dim=1)
-        logits = torch.einsum("bhqd,bhkd->bhqk", q, kx) * scale
-        mask = attention_mask(q.shape[2], k.shape[2], causal=causal,
-                              window=window, device=q.device)
-        logits = torch.where(mask[None, None], logits,
-                             torch.tensor(NEG_INF, dtype=q.dtype))
-        return torch.einsum("bhqk,bhkd->bhqd", torch.softmax(logits, -1),
-                            vx)
-
-    def xent64(logits, labels):
-        lp = torch.log_softmax(logits, dim=-1)
-        return -torch.take_along_dim(lp, labels.long()[..., None],
-                                     dim=-1).mean()
-
-    saved = [(mod, "F32", mod.F32) for mod in (layers, moe, rglru, ssm)]
-    saved += [(lm, "_xent", lm._xent),
-              (attention, "flash_attention", attention.flash_attention)]
-    for mod, name, _ in saved[:4]:
-        setattr(mod, name, torch.float64)
-    lm._xent, attention.flash_attention = xent64, attention64
-    try:
-        yield
-    finally:
-        for mod, name, value in saved:
-            setattr(mod, name, value)
-
-
 def grads64(cfg, kept: Dict) -> List:
     """The first step's gradients of ``kept``'s initial weights and
     batch, in float64 on the CPU, as numpy arrays."""
-    import torch
-    from repro_torch.models.lm import build_model
-    from repro_torch.train import make_loss_fn
-    from repro_torch.utils.tree import tree_leaves
-    model = build_model(cfg, device=torch.device("cpu"),
-                        dtype=torch.float64)
-    leaves = tree_leaves(model.param_tree())
-    with torch.no_grad():
-        for p, q in zip(leaves, kept["init"]):
-            p.copy_(q.double())
-    model.requires_grad_(True)
-    with _float64_path():
-        loss = make_loss_fn(model, kept["run"])(kept["batches"][0])
-        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
-    return [g.detach().numpy() for g in grads]
+    return chip_smoke.float64_grads(cfg, kept["init"],
+                                    kept["batches"][0])[1]
 
 
 def diagnose(dev, cfg, steps: int, seq: int, batch: int, seeds, top: int

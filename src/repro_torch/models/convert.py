@@ -11,9 +11,10 @@ stacked), the SSM's and the RG-LRU's leaves, the frontend's projection
 and the audio MLP's biases included. The reference stacks the layers of
 a homogeneous stack (every leaf with a leading layer axis: the dense,
 MoE, SSM and audio families) and keeps the hybrid's per-layer list;
-both load. Every leaf takes the model's dtype, the reference's float32
-specs too, as its ``materialize(..., dtype)`` casts them. This is the
-one place that knows the mapping.
+both load. Every leaf takes its parameter's dtype
+(``models.lm.param_dtype``: a bfloat16 model keeps the float32 specs in
+float32, as the reference's ``init(key)`` does). This is the one place
+that knows the mapping.
 """
 from __future__ import annotations
 
@@ -67,7 +68,8 @@ def _copy(dst, src: Any, where: str) -> None:
 def load_reference_params(model: LanguageModel,
                           params: Mapping) -> LanguageModel:
     """Load the reference's params (numpy arrays, or anything
-    ``np.asarray`` takes) into ``model``, casting to its dtype."""
+    ``np.asarray`` takes) into ``model``, casting each to its
+    parameter's dtype."""
     _copy_params(model.param_tree(), params, "params")
     return model
 

@@ -88,16 +88,26 @@ def _block_spec(cfg: ArchConfig, kind: str) -> Dict:
     return spec
 
 
+def param_dtype(spec: ParamSpec, dtype: torch.dtype) -> torch.dtype:
+    """The dtype a parameter of ``spec`` takes in a model of ``dtype``:
+    the wider of the two. A bfloat16 model keeps the float32 specs (the
+    router, the SSM's ``A_log``/``D``/``dt_bias``, the RG-LRU's ``lam``)
+    in float32, as the reference's ``init(key)`` keeps each spec's own
+    dtype; a float32 or float64 model holds every parameter in its
+    dtype, as ``init(key, dtype=float32)`` casts them all."""
+    return torch.promote_types(spec.dtype, dtype)
+
+
 def _params(spec: Dict, device: torch.device,
             dtype: torch.dtype) -> nn.ParameterDict:
     """Uninitialized parameters, without gradients, for a dict of specs
-    (a nested dict becomes a nested ``ParameterDict``). Every parameter
-    takes the model's dtype, the float32 specs too (the router, the SSM's
-    ``A_log``/``D``/``dt_bias``, the RG-LRU's ``lam``), as the
-    reference's ``materialize(..., dtype)``."""
+    (a nested dict becomes a nested ``ParameterDict``), each in
+    :func:`param_dtype`."""
     return nn.ParameterDict({
         name: (_params(s, device, dtype) if isinstance(s, dict) else
-               nn.Parameter(torch.empty(s.shape, dtype=dtype, device=device),
+               nn.Parameter(torch.empty(s.shape,
+                                        dtype=param_dtype(s, dtype),
+                                        device=device),
                             requires_grad=False))
         for name, s in spec.items()})
 
@@ -277,9 +287,10 @@ class LanguageModel(nn.Module):
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LanguageModel":
         """Random weights by the reference's init rules, drawn from
-        ``generator`` one parameter at a time, in spec-tree order."""
+        ``generator`` one parameter at a time, in spec-tree order, each
+        in its parameter's dtype."""
         for spec, p in _pairs(self.param_specs(), self.param_tree()):
-            p.copy_(init_tensor(spec, generator, self.dtype, self.device))
+            p.copy_(init_tensor(spec, generator, p.dtype, self.device))
         return self
 
     # --------------------------------------------------------------- forward

@@ -1000,3 +1000,173 @@ def test_moe_serve_configs_cut_only_moonshots_depth():
     small = reduced_config(moonshot)
     ((s, s_cut), _) = chip_smoke.moe_serve_configs(small, deepseek)
     assert s == small and s_cut is None
+
+
+# ------------------------------------- the reference's training configuration
+def test_reference_train_configs_take_parallel_for():
+    """phase_reference_train's runs take ``parallel_for``'s settings of
+    each published arch at train_4k: moonshot at its full width cut in
+    depth only, to what 12 bytes a parameter (bfloat16 weights and
+    gradients, float32 moments) leave of ``MOE_TRAIN_BUDGET``; every
+    reduced family and reduced command-r-plus-104b, where the two XXL
+    archs (deepseek-v3-671b among the families) take 4 microbatches and
+    bfloat16 moments."""
+    rt = chip_smoke.reference_train_configs(get_arch)
+    moe = rt["moe"]
+    moon = get_arch("moonshot-v1-16b-a3b")
+    assert moe["cfg"] == dataclasses.replace(moon,
+                                             n_layers=moe["cfg"].n_layers)
+    assert 5 <= moe["cfg"].n_layers <= 8
+    assert moe["depth_cut"]["from"] == 48 and moe["batch"] == 1
+    assert moe["shape"].seq_len == 4096 and moe["steps"] == 3
+    state = moe["cfg"].param_count() * chip_smoke.TRAIN_STATE_BYTES
+    assert state <= chip_smoke.MOE_TRAIN_BUDGET
+    par = moe["parallel"]
+    assert (par.remat, par.microbatches, par.opt_state_dtype) == (
+        "full", 1, "float32")
+    names = [(cfg.name, p.microbatches, p.opt_state_dtype)
+             for cfg, p in rt["parity"]]
+    xxl = ("deepseek-v3-671b", "command-r-plus-104b")
+    assert names == [
+        (f"{name}-smoke", 4 if name in xxl else 1,
+         "bfloat16" if name in xxl else "float32")
+        for name in [n for n, _ in chip_smoke.PARITY_ARCHS] + [xxl[1]]]
+    assert all(p.remat == "full" for _, p in rt["parity"])
+
+
+def test_depth_that_fits_counts_the_init_in_its_own_bytes():
+    """With the training state counted per parameter, the init's
+    transient is the largest weight in float32 and in the weights' own
+    bytes, not in the state's."""
+    moon = get_arch("moonshot-v1-16b-a3b")
+    cut = chip_smoke.depth_that_fits(moon, 12, 60e9, init_bytes=2)
+    elements = moon.vocab_size * moon.d_model
+    assert f"{elements * 6 / 1e9:.2f} GB transient" in cut["reason"]
+    assert cut == chip_smoke.depth_that_fits(moon, 12, 60e9, init_bytes=2)
+    # serving's call is unchanged: the transient in float32 and the
+    # weights' bytes
+    assert chip_smoke.depth_that_fits(moon, 2, 72e9) == \
+        chip_smoke.depth_that_fits(moon, 2, 72e9, init_bytes=2)
+
+
+def test_reference_train_phase_on_cpu():
+    """The phase end to end with the plain versions at reduced widths:
+    moonshot's full-width run as a 2-layer reduced MoE over 64 tokens (the
+    loss falls, drops counted at the published capacity factor), and the
+    bfloat16 card-vs-CPU step of a dense, the MoE, the SSM (no
+    attention) and an XXL case, both
+    sides on the CPU: equal, so every bar holds with room."""
+    from repro_torch.config.types import get_shape
+    from repro_torch.launch.dryrun import parallel_for
+    m_read, m_write = default_models()
+    shape = dataclasses.replace(get_shape("train_4k"), seq_len=64)
+    moon = reduced_config(get_arch("moonshot-v1-16b-a3b"))
+    moe = {"published": get_arch("moonshot-v1-16b-a3b"), "cfg": moon,
+           "depth_cut": {"from": 48, "to": 2, "reason": "rehearsal"},
+           "shape": shape, "batch": 1, "steps": 3,
+           "parallel": parallel_for(get_arch("moonshot-v1-16b-a3b"),
+                                    shape)}
+    xxl = parallel_for(get_arch("deepseek-v3-671b"), shape)
+    parity = [(reduced_config(get_arch("granite-3-2b")),
+               parallel_for(get_arch("granite-3-2b"), shape)),
+              (moon, moe["parallel"]),
+              (reduced_config(get_arch("mamba2-370m")),
+               parallel_for(get_arch("mamba2-370m"), shape)),
+              (reduced_config(get_arch("deepseek-v3-671b")), xxl)]
+    res = chip_smoke.phase_reference_train(CPU, moe, parity,
+                                           {"read": m_read,
+                                            "write": m_write})
+    json.dumps(res)
+    full = res["moe_train"]
+    assert full["cell"] == "moonshot-v1-16b-a3b x train_4k"
+    assert full["dtype"] == "bfloat16" and full["remat"] == "full"
+    assert full["losses"][-1] < full["losses"][0]
+    assert full["moe"]["assignments"] > 0
+    loads = full["moe"]["loads"]
+    assert loads["calls"] == full["moe"]["dispatches"]
+    assert loads["plain_dropped"] == full["moe"]["dropped"]
+    assert len(loads["first_forward_by_layer"]) == moon.n_layers
+    for row in loads["first_forward_by_layer"]:
+        assert 0.0 <= row["dropped_share"] < 1.0
+        assert 0.0 < row["tokens_mean_cosine"] <= 1.0 + 1e-6
+        assert row["logit_spread"] > 0.0
+    assert sum(loads["histogram_first_call"]) == \
+        moon.moe.top_k * shape.seq_len
+    assert full["moe"]["capacity_factor"] == moon.moe.capacity_factor
+    assert {c["what"] for c in full["reduced"]} >= {"batch", "n_layers",
+                                                    "d_model"}
+    assert [r["arch"] for r in res["parity"]] == [
+        "granite-3-2b-smoke", "moonshot-v1-16b-a3b-smoke",
+        "mamba2-370m-smoke", "deepseek-v3-671b-smoke"]
+    assert [r["k2_kernel"] for r in res["parity"]] == [
+        "tc", "tc", "none", "simt"]
+    for r in res["parity"]:
+        # the same gradients on both sides: a third of the 3x bar
+        assert r["grad_worst"]["err_over_bound"] <= 1 / 3
+        assert r["loss_rel_err"] == 0.0
+        assert max(r["state_max_abs_err"].values()) == 0.0
+        # one device: the replay is the step's own update, bit for bit
+        assert r["replay"]["most_ulps"] == 0
+        assert r["bf16_weights_moved_share"] >= chip_smoke.MOVED_SHARE
+        assert "torch.bfloat16" in r["param_dtypes"]
+        assert r["k2_launches_cpu"] == r["k2_launches_card"] == 0
+    assert res["parity"][1]["param_dtypes"] == ["torch.bfloat16",
+                                                "torch.float32"]
+    assert res["parity"][1]["moe"]["flips"] == {
+        "ok": True, "calls_differing": 0, "calls": [], "margins": []}
+    assert res["parity"][3]["microbatches"] == 4
+    assert res["parity"][3]["opt_state_dtype"] == "bfloat16"
+    assert chip_smoke.ref_train_launches(res) == 0
+    line = chip_smoke.summary_line([], [], [], [], None, res)
+    assert set(line["reference_train"]["bf16_parity"]) == {
+        "granite-3-2b-smoke", "moonshot-v1-16b-a3b-smoke",
+        "mamba2-370m-smoke", "deepseek-v3-671b-smoke xxl"}
+
+
+def test_dispatch_flips_hold_only_crossed_routers():
+    """A dispatch whose experts differ where the two routers'
+    probabilities cross passes and is reported with its margin; a state
+    that differs with the same experts everywhere does not pass."""
+    def disp(experts, probs, slots):
+        d = chip_smoke._Dispatches(keep_states=True)
+        d.states = [[torch.tensor(slots), torch.zeros(1, 2),
+                     torch.ones(1, 2, dtype=torch.bool), torch.zeros(1, 2)]]
+        d.experts = [torch.tensor(experts)]
+        d.probs = [torch.tensor(probs)]
+        return d
+
+    cpu = disp([[[0], [1]]], [[[0.51, 0.49], [0.2, 0.8]]], [[0, 9]])
+    same = disp([[[0], [1]]], [[[0.51, 0.49], [0.2, 0.8]]], [[0, 9]])
+    assert chip_smoke.dispatch_flips(cpu, same) == {
+        "ok": True, "calls_differing": 0, "calls": [], "margins": []}
+    flipped = disp([[[1], [1]]], [[[0.49, 0.51], [0.2, 0.8]]], [[8, 9]])
+    got = chip_smoke.dispatch_flips(cpu, flipped)
+    assert got["ok"] and got["calls_differing"] == 1
+    (tok,) = got["calls"][0]["tokens"]
+    assert tok["token"] == 0 and tok["experts"] == [[0], [1]]
+    assert tok["router_margin"] == pytest.approx(0.02)
+    assert tok["prob_gap"] == pytest.approx(0.02)
+    reordered = disp([[[0], [1]]], [[[0.51, 0.49], [0.2, 0.8]]], [[1, 9]])
+    assert not chip_smoke.dispatch_flips(cpu, reordered)["ok"]
+
+
+@pytest.mark.parametrize("fits_up_to,first,most,want,probed", [
+    (3, 3, 8, 3, [3, 4]),          # fits at the first, not the next
+    (5, 3, 8, 5, [3, 4, 5, 6]),    # up a batch at a time
+    (8, 3, 8, 8, [3, 4, 5, 6, 7, 8]),  # to the cap: no next batch
+    (2, 3, 8, 2, [3, 2]),          # down until one fits
+    (1, 3, 8, 1, [3, 2]),          # a batch of 1 is taken to fit
+])
+def test_largest_batch_probes_up_and_down(monkeypatch, fits_up_to, first,
+                                          most, want, probed):
+    """train_4k's batch probe: from its first batch up while each fits,
+    or down until one does; every probe kept in order."""
+    def probe(dev, cfg, batch, seq, parallel=None):
+        return {"batch": batch, "seq": seq, "fits": batch <= fits_up_to,
+                "peak_device_bytes": None, "error": None}
+
+    monkeypatch.setattr(chip_smoke, "_train_batch_probe", probe)
+    batch, probes = chip_smoke._largest_batch(CPU, None, 64, None, first,
+                                              most)
+    assert batch == want
+    assert [p["batch"] for p in probes] == probed
